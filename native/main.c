@@ -34,7 +34,7 @@ int main(int argc, char** argv) {
                    "--samples <count>     # Total samples to render\n"
                    "--width <width>       # Image width\n"
                    "--height <height>     # Image height\n"
-                   "--gpus <count>        # Max used TPU chips count\n");
+                   "--gpus <count>        # Max used devices count\n");
             return 0;
         } else if (strcmp(a, "--store") == 0) {
             store = true;

@@ -5,7 +5,7 @@
 // like the reference's scripts/test.py smoke test does against its
 // ray_trace.dll.
 //
-// On TPU the renderer itself is the JAX/Pallas framework, so this library
+// The renderer itself is the JAX/Pallas framework, so this library
 // embeds CPython and forwards to raytrace_tpu.api.ray_trace.  The embedded
 // interpreter is initialized once and reused across calls.
 //

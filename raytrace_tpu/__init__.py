@@ -1,18 +1,17 @@
-"""raytrace_tpu — a TPU-native path-tracing framework (JAX/XLA/Pallas).
+"""raytrace_tpu — a path-tracing framework in JAX (XLA + Pallas).
 
 Brand-new implementation of the capabilities of water-chika/ray-tracing-gpu-vulkan
 (Vulkan hardware ray tracing of the *Ray Tracing in One Weekend* final scene with
-multi-GPU image-split parallelism and a dynamic workload tuner), re-designed
-TPU-first:
+multi-GPU image-split parallelism and a dynamic workload tuner):
 
-- the Vulkan RT pipeline (rgen/rint/rchit/rmiss + BLAS/TLAS) becomes a single
-  jitted *persistent-wavefront* loop: every pixel owns a lane, terminated paths
+- the Vulkan RT pipeline (rgen/rint/rchit/rmiss + BLAS/TLAS) becomes a
+  *persistent-wavefront* loop: every pixel owns a lane, terminated paths
   immediately regenerate the pixel's next sample in place, so shapes stay static
-  and lane occupancy stays ~100% (``ops/trace.py``);
-- ray-vs-all-spheres intersection replaces hardware AS traversal, with the two
-  ray x sphere contractions expressed as MXU matmuls and a Pallas kernel that
-  keeps the whole sphere table resident in VMEM (``ops/intersect.py``,
-  ``ops/pallas_intersect.py``);
+  and lanes stay busy (``ops/trace.py``, ``ops/wavefront.py``);
+- hardware AS traversal becomes a uniform-grid DDA, run on the GPU as one
+  Pallas-Triton kernel that keeps every lane's state in registers
+  (``models/grid.py``, ``ops/gridkernel.py``), with brute-force ray-vs-all-
+  spheres XLA paths for scenes without a grid (``ops/intersect.py``);
 - multi-GPU row-band splitting + the workload auto-tuner become
   ``jax.sharding.Mesh`` + ``shard_map`` over pixel rows (``parallel/``);
 - the GLSL TEA+LCG RNG is reproduced bit-exactly so output can be validated
@@ -25,45 +24,17 @@ import os as _os
 
 import jax as _jax
 
-# Persistent XLA compile cache: the wavefront while-loop costs minutes to
-# compile on the TPU toolchain; cache hits make every later process instant.
-# Opt out with RAYTRACE_TPU_CACHE=0 or point RAYTRACE_TPU_CACHE at a dir.
-_cache = _os.environ.get("RAYTRACE_TPU_CACHE", "")
-if _cache != "0" and not _jax.config.jax_compilation_cache_dir:
-    try:
-        if not _cache:
-            _cache = _os.path.join(
-                _os.environ.get("XDG_CACHE_HOME", _os.path.expanduser("~/.cache")),
-                "raytrace_tpu_xla",
-            )
-        _os.makedirs(_cache, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass  # cache is an optimization; never block import
-
-# TILE is a compile-time module constant of the grid kernel (read from
-# RAYTRACE_GRID_TILE at ops/gridkernel.py import).  A cross-process TILE
-# sweep (`--autotune --full`, runtime/autotune.py sweep_tile) persists the
-# winner per device kind; honor it here — before any kernel module import —
-# unless the user pinned the env var themselves.
-if "RAYTRACE_GRID_TILE" not in _os.environ:
-    try:
-        import json as _json
-
-        _at = _os.environ.get(
-            "RAYTRACE_AUTOTUNE_CACHE",
-            _os.path.expanduser("~/.cache/raytrace_tpu_autotune.json"))
-        if _os.path.exists(_at):
-            with open(_at) as _f:
-                for _row in _json.load(_f).values():
-                    # one chip kind per host on this rig; if several exist,
-                    # a tile tuned on any of them beats the blind default
-                    if "tile" in _row:
-                        _os.environ["RAYTRACE_GRID_TILE"] = str(_row["tile"])
-                        break
-    except Exception:
-        pass  # tuning is an optimization; never block import
+# Persistent XLA compile cache.  JAX_COMPILATION_CACHE_DIR, when set, is
+# JAX's own setting and wins; a directory the embedding program configured
+# (the test suite does) is kept; otherwise compiled programs go to one
+# fixed directory inside the checkout.
+CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
+if not (_os.environ.get("JAX_COMPILATION_CACHE_DIR")
+        or _jax.config.jax_compilation_cache_dir):
+    _os.makedirs(CACHE_DIR, exist_ok=True)
+    _jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
 
 from .config import RenderCallInfo, RenderConfig
 from .models.scene import generate_random_scene, three_sphere_scene, SceneArrays

@@ -47,12 +47,11 @@ def ray_trace(
     preview: bool = False,
     pixels_per_lane: Optional[int] = None,
     mode: str = "exact",
-    balance_spp: int = 0,
 ) -> np.ndarray:
     """Drop-in analogue of the reference C ABI entry point.
 
     Renders the procedural final-book scene at (width, height) with ``samples``
-    spp across ``gpu_count`` chips, prints duration_per_frame, optionally
+    spp across ``gpu_count`` devices, prints duration_per_frame, optionally
     stores a PNG, and returns the u8 image.
     """
     import time
@@ -71,7 +70,6 @@ def ray_trace(
         accum_dtype=accum_dtype,
         pixels_per_lane=pixels_per_lane,
         mode=mode,
-        balance_spp=balance_spp,
     )
     t0 = time.perf_counter()
     if preview and gpu_count == 1:

@@ -3,8 +3,8 @@
 ``RenderCallInfo`` mirrors /root/reference/src/render_call_info.h:5-13 (the
 std140 padding field ``t[2]`` is omitted; it only exists host-side in the
 reference for alignment).  ``RenderConfig`` collects the CLI-level settings of
-/root/reference/src/main.cpp:13-17 plus TPU-specific knobs that have no Vulkan
-analogue (sample chunking, intersection backend, accumulator dtype).
+the reference's src/main.cpp:13-17 plus knobs that have no Vulkan analogue
+(sample chunking, intersection backend, accumulator dtype).
 """
 
 from __future__ import annotations
@@ -41,12 +41,10 @@ T_MIN = 0.001  # traceRayEXT tMin, shader.rgen:75
 # Fast-mode Russian-roulette defaults (mode="fast"): start depth, the depth
 # past which survival is additionally halved (bounds glass paths whose
 # throughput stays ~1), and the survival-probability floor (caps the 1/p
-# reweight at 20x).  Unbiased for any values.  Hardware A/B at 1080p x
-# 400 spp (scripts/fast_ab.py, interleaved): d0=1 -32.8% vs exact (gate
-# p95_z 1.37), d0=2 -23.4% (p95_z 0.38).  d0=1 is the default — fast mode
-# targets high-spp production renders where its ~2x indirect-light variance
-# is invisible; pass rr_params=(2, 16, 0.05) (or use exact mode) for
-# low-spp previews where it is not.
+# reweight at 20x).  Unbiased for any values.  d0=1 is the default — fast
+# mode targets high-spp production renders where its ~2x indirect-light
+# variance is invisible; pass rr_params=(2, 16, 0.05) (or use exact mode)
+# for low-spp previews where it is not.
 RR_START_DEPTH = 1
 RR_CAP_DEPTH = 16
 RR_PMIN = 0.05
@@ -54,21 +52,16 @@ RR_PMIN = 0.05
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Full-render settings (CLI surface of main.cpp:13-17 + TPU knobs)."""
+    """Full-render settings (CLI surface of main.cpp:13-17 + device knobs)."""
 
     samples: int = 10  # --samples, main.cpp:13
     store: bool = False  # --store, main.cpp:14 (PNG out; reference never writes, Q2)
     width: int = 1920  # --width
     height: int = 1080  # --height
-    chips: int = 1  # --gpus analogue: TPU chips to shard row bands over
+    chips: int = 1  # --gpus: devices to shard row bands over
     max_depth: int = MAX_DEPTH
     samples_per_call: Optional[int] = None  # None = all in one call (reference Q3)
-    calls_per_exec: int = 1  # grid backend: progressive calls merged into one
-    # device dispatch (in-kernel call merge — bit-identical to the host loop,
-    # but without the per-call wavefront drain).  Keep each dispatch under
-    # ~60 s of device time: very long single executions can trip the TPU
-    # runtime watchdog (CLAUDE.md).
-    backend: str = "auto"  # auto|mega|pallas|matmul|bruteforce (trace.py)
+    backend: str = "auto"  # auto|grid|matmul|bruteforce (trace.py)
     mode: str = "exact"  # exact|fast.  "exact" reproduces the reference GLSL
     # sample stream bit-for-bit (the test/parity contract).  "fast" is the
     # production mode: Russian-roulette path termination (unbiased — the
@@ -77,11 +70,6 @@ class RenderConfig:
     # backend bit-invariance) within itself.
     rr_params: Optional[Tuple[int, int, float]] = None  # override the
     # (start depth, cap depth, p floor) defaults for mode="fast"
-    balance_spp: int = 0  # grid backend: when > 0, measure per-pixel costs
-    # with an iterstats probe of this many spp and render with a balanced
-    # pixel->lane assignment (runtime/balance.py).  BIT-IDENTICAL output
-    # (assignment invariance); only the straggler wall moves.  0 = the
-    # default strided map.
     scene_time: float = 0.0  # hero-sphere animation time (scene.h:82-83)
     accum_dtype: str = "float32"  # reference uses dvec3 (Q5); f32 validated in tests
     out_path: str = "render.png"

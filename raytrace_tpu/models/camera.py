@@ -9,7 +9,7 @@ camera constants fov=25deg, aperture=0, focusDistance=10, up=+Y
 
 In the reference the viewport is recomputed per pixel inside the shader; it is
 pixel-independent, so here it is precomputed once on the host in float32 and
-shipped to the kernel as constants (TPU-first: hoist uniform work out of the
+shipped to the kernel as constants (uniform work hoisted out of the
 hot loop).  Per-ray generation (``getCameraRay``, shader.rgen:107-115) lives in
 ``ops/trace.py`` where it is vectorized over slots.
 """

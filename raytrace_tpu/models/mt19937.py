@@ -3,7 +3,7 @@
 The reference scene generator (/root/reference/src/scene.h:120 ``std::mt19937
 engine{}``) uses a default-seeded Mersenne Twister with
 ``std::uniform_real_distribution<float>`` (scene.h:37-44) to lay out the 484
-small spheres.  To make our TPU renderer's scene byte-identical to the Vulkan
+small spheres.  To make our renderer's scene byte-identical to the Vulkan
 renderer's, we reproduce both the engine and libstdc++'s ``generate_canonical``
 float path exactly.
 

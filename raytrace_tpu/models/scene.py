@@ -1,4 +1,4 @@
-"""Procedural *Ray Tracing in One Weekend* scene, SoA layout for TPU.
+"""Procedural *Ray Tracing in One Weekend* scene, struct-of-arrays layout.
 
 Reproduces the reference's ``generateRandomScene`` (/root/reference/src/scene.h:79-157)
 exactly: the ground sphere, three animated hero spheres, and a 22x22 grid of 484
@@ -6,11 +6,11 @@ small spheres laid out by a default-seeded ``std::mt19937`` (70% diffuse / 15%
 metal / 15% glass, scene.h:129-149), with the HSV random color formula of
 ``getRandomColor`` (scene.h:47-77).
 
-Design difference from the reference (TPU-first): the reference stores an
+Design difference from the reference: the reference stores an
 array-of-structs ``Sphere[512]`` uniform (scene.h:16-29) consumed per-primitive
 by the intersection/hit shaders.  Here the scene is a struct-of-arrays pytree —
 ``centers[512,3]``, ``radii[512]``, ... — so ray-vs-all-spheres math vectorizes
-over the sphere axis on the VPU/MXU.  MAX_SPHERE_AMOUNT=512 padding is kept so
+over the sphere axis.  MAX_SPHERE_AMOUNT=512 padding is kept so
 shapes are static; padded entries have radius 0 and can never be hit.
 
 The reference animates the hero spheres by wall-clock time (scene.h:82-83,

@@ -1,1223 +1,132 @@
-"""Grid-DDA megakernel: the TPU acceleration-structure backend.
+"""Grid-DDA wavefront as one Pallas-Triton kernel — the GPU hot path.
 
-Replaces the brute-force 512-sphere scan of ops/megakernel.py with per-lane
-uniform-grid traversal — the TPU-native answer to the reference's hardware
-BVH (/root/reference/src/vulkan.h:395-554 + :994 traceRaysKHR, whose RT
-cores touch ~10 nodes per segment where brute force tests all 512 spheres).
+As a plain XLA while loop, each wavefront iteration of the grid march is
+a chain of XLA kernels: all lane state (~27 values per lane) goes through
+device memory between them, and the loop predicate returns to the host
+every iteration.  A DDA march has data-dependent trip counts and small
+gathers, so those fixed costs dwarf its arithmetic (that loop took 18x
+this kernel's time on an H100 and was removed; PERF.md).
 
-Per wavefront iteration each lane is in one of two modes:
+Here one program owns a power-of-two block of lanes, one lane per thread,
+and runs the whole band for them: its lanes' state lives in registers from
+the first camera ray to the last flush, and the loop ends when the last
+lane of the block has rendered all its pixels.  Per iteration every lane
+that needs a new segment tests the global spheres and enters the grid, the
+block marches until none of its lanes is marching (each cell's candidates
+are gathered from the flat tables of models/grid.py, which stay in L2), and
+then the lanes shade, scatter and regenerate.  A pixel's colour sum is
+written to the accumulator in device memory once, when its lane moves on
+to the next pixel.  The per-lane arithmetic is ops/wavefront.py, the same
+code the XLA backends run, so the kernel differs from ``bruteforce`` only
+in the closest-hit search and in rounding (below).
 
-  need_start (fresh segment): brute-force the <=8 "global" spheres
-      (ground + heroes — large spheres that would crowd every cell), clip
-      the ray against the grid's slab/box (one reciprocal per axis, reused
-      by the DDA), and initialize an Amanatides-Woo 2-D DDA over the (x,z)
-      cell lattice;
-  marching: ``j_steps`` DDA steps (default 2 — cells/segment is ~2.4) —
-      fetch each cell's candidate spheres with per-lane Mosaic
-      ``dynamic_gather`` ops (block-major tables, models/grid.py): 4 slots
-      of (cx, cz, kc, id) with cy a shared scalar for uniform-height
-      fields (the book scene), or ``n_slots`` (adaptive, <= 8) slots of
-      (cx, cy, cz, kc, id) for general scenes — run the exact brute-force
-      quadratic on them, and advance; at j>=2 ALL j cells are fetched in
-      one speculative gather (the advance direction needs only t_nx/t_nz,
-      so the whole cell chain is known before any quadratic).  The march
-      ends when the next cell's entry t can no longer beat the best hit
-      (t_exit >= t_best) or the ray leaves the grid.
-
-A dispatch can merge ``n_calls`` progressive calls (in-kernel call merge:
-numbers number0..number0+n_calls-1 run back-to-back per pixel with the
-running sum flushed at every call boundary — bit-identical to the host
-loop, minus its per-call wavefront drains).  Fresh TEA reseeds are
-precomputed into state rows and refreshed under a pl.when only during
-renew bursts (the hash chain was 17.7% of the iteration when inline).
-
-Lanes whose march completed shade (same shader.rchit/rgen row math as the
-brute-force megakernel — materials, termination, accumulation, sample/pixel
-regen), with the winner's attributes fetched by ONE more gather (bkey is
-the global sphere id, so 5 attr values directly — the winner's center rides
-in state rows and tex/c1 exist only on globals) instead of the megakernel's
-one-hot MXU contraction.
-Lanes mid-march skip shading and continue next iteration.
-
-Exactness: bit-identical to the brute-force megakernel (tests pin it) — same
-packed (cx, cz, kc) table values, same quadratic op order, strict-< winner
-updates over index-sorted candidates and ray-ordered cells reproduce the
-lowest-index argmin, and the builder's delta-enlarged candidate registration
-makes DDA fp slop unable to skip a reachable sphere (models/grid.py).
-
-State layout (f32 rows; M = pixels_per_lane):
-  0-2 o | 3-5 d | 6 fx | 7 fy | 8-10 thr | 11 t_best | 12 t_end | 13 t_nx
-  | 14 t_nz | 15 bkey | 16-17 winner cx/cz | 18-20 cur.rgb | 21+3m+c acc
-u32 rows: 0 seed | 1 m | 2 sidx | 3 depth | 4 alive | 5 marching | 6 icx
-  | 7 icz | 8 call (progressive-call index of the in-kernel call merge)
-  | 9-10 precomputed fresh TEA seeds (next-call / next-pixel) | 11 stale flag
-bkey encodes the winner: the global sphere id for grid hits (it rides the
-candidate fetch as a 4th value), 4096+sphere_id for global hits; cur.rgb is the
-running sum of the lane's current pixel, flushed to its acc slot on pixel
-advance (the acc rows live in the aliased output ref, not in loop carries).
+Numerics: Triton lowers f32 ``/`` to the approximate ``div.full.f32``, so
+the compiled kernel divides with ``div.rn.f32`` (IEEE round-to-nearest,
+like XLA).  Triton and XLA:GPU both contract multiply-adds into FMAs, in
+different places, so the compiled kernel matches ``bruteforce`` on the card
+statistically, not bitwise; in interpret mode (tests) it is the same jnp
+code as ``bruteforce`` and matches it bitwise.
 """
 
 from __future__ import annotations
 
 import functools
+import operator
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from .. import config
-from ..models.grid import (G_CMAXX, G_CMAXZ, G_CMINX, G_CMINZ, G_CY, G_INVS,
-                           G_NCZ, G_S, G_XHI, G_XLO, G_YHI, G_YLO, G_ZHI,
-                           G_ZLO, N_SLOTS)
-from . import rng as rngops
-from .intersect import BIG
-from .megakernel import (_SKY, S_NCALLS, S_NUMBER, S_OFFX, S_SEEDY0, S_SPP,
-                         S_SPPLAST, S_Y0, _camera_rays_rows, _norm3)
-from .shading_rows import shade_rows
+from . import wavefront as wf
 
-# Lanes per grid step.  Unlike the brute-force megakernel (whose [S, T]
-# intersect blocks span many vregs per op), ALL of this kernel's row ops are
-# [1, TILE]: at TILE=1024 each op is a single (8,128)-packed vreg and the
-# VPU sits idle on dependency-chain latency (measured: duplicating whole
-# gather sections cost ~0%).  Wider tiles issue TILE/1024 vregs per op,
-# hiding latency behind throughput.  RAYTRACE_GRID_TILE overrides for
-# cross-process A/Bs (TILE is read at trace time, so in-process sweeps
-# would silently reuse the first compiled program — CLAUDE.md).
-import os as _os
-
-TILE = int(_os.environ.get("RAYTRACE_GRID_TILE", 4096))
-K_STEPS = 40  # wavefront iterations per kernel invocation: amortizes the
-# per-invocation state+acc DMA (~14 MB each way at M=64; r3 sweep: K=40
-# beats K=10 by 8% at j=2)
-J_STEPS = 2  # DDA cell steps per wavefront iteration.  The r2 "j>1 loses"
-# result came from the camera-bugged oracle floor (cells/segment is ~2.4,
-# not 0.39) plus the old expensive fetch; with block-major fetches j=2
-# trades +29% per-iteration cost for -29% issued iterations (net -8.5%,
-# scripts/grid_mjsweep.py)
-UNROLL = False  # statically unroll the K_STEPS loop (scheduling experiment)
-FUSE = 1  # 128-lane chunks per dynamic_gather op (stacked-table fusion)
-GROUPS = 1  # independent column groups per tile-iteration.  The iteration
-# is one long dependency chain (serial shares sum to ~94%,
-# scripts/grid_iterbench.py) and at 1024-lane op width the VPU has latency
-# slack (duplicating sections measured ~free in r2).  groups=G slices the
-# TILE into G column groups stepped as G independent dataflow chains in the
-# SAME basic block, giving Mosaic's scheduler parallel work to fill the
-# gather/dependency stalls with — e.g. group B's cell-fetch gathers can
-# issue under group A's shading ALU.  Bit-identical images by construction
-# (element-wise ops column-sliced; gathers are per-128-lane chunk either
-# way; pl.when gates are lane-masked).
-
-# f32 state rows.  R_CUR is the running color sum of the lane's CURRENT
-# pixel; it is flushed into the pixel's acc slot only when the lane advances
-# to its next pixel (rare), so the per-iteration accumulation is 3 masked
-# adds instead of a 3*M-row select loop, and the acc rows live in the
-# (input/output-aliased) state ref rather than in loop carries.
-R_O, R_D, R_FX, R_FY, R_THR = 0, 3, 6, 7, 8
-R_TB, R_TE, R_TNX, R_TNZ, R_BKEY = 11, 12, 13, 14, 15
-R_WCX, R_WCZ = 16, 17  # winning grid candidate's center (x, z)
-R_CUR, R_ACC = 18, 21
-R_HDR = 21  # header rows (everything before the acc slots)
-# u32 state rows
-U_SEED, U_M, U_SIDX, U_DEPTH, U_ALIVE, U_MARCH, U_ICX, U_ICZ = range(8)
-U_CALL = 8  # current progressive-call index within a merged dispatch
-U_FNC = 9  # precomputed fresh TEA seed: same pixel, next call
-U_FNP = 10  # precomputed fresh TEA seed: next pixel slot, first call
-U_PEND = 11  # 1 -> the two fresh rows are stale (lane renewed; recompute)
-U_ROWS = 12  # block sublane dim == array dim (exact-dim rule)
-
-_TAG = np.float32(4096.0)  # bkey values >= _TAG are direct sphere ids
-
-# perf-ablation switches (scripts/grid_ablate.py): additive duplication of
-# kernel sections to attribute device time; plumbed as a STATIC jit arg so
-# each variant compiles its own program (a module-global read at trace time
-# would cache-collide across variants).  Images are unchanged (never-taken
-# selects), cost is the only observable.
-ABLATE: frozenset = frozenset()  # default for production paths
+BLOCK = 128  # lanes per program (one per thread: 4 warps)
 
 
-def f_rows(m_slots: int) -> int:
-    r = R_ACC + 3 * m_slots
-    return -(-r // 8) * 8
+def block_lanes(n_lanes: int, block: int = BLOCK) -> int:
+    """Lanes per program: ``block``, or the next power of two >= n_lanes
+    for bands smaller than one block (Triton blocks are powers of two; a
+    warp is 32 threads)."""
+    return max(32, min(block, pl.next_power_of_2(n_lanes)))
 
 
-def _gather_rows(tab, cid, *, blocks, n_vals, stride=None, fuse=1,
-                 narrow_select=False):
-    """Per-lane fetch of ``n_vals`` f32 values from a blocked lane-table.
-
-    tab: BLOCK-MAJOR [blocks*stride, 128] (``fuse`` stacked copies when
-    fuse > 1): row (b*stride + v) holds value v of entries
-    b*128..b*128+127; ``stride`` (default n_vals) must be a multiple of 8
-    when n_vals isn't — Mosaic can only concatenate chunk slices whose
-    sublane offsets agree, so block starts must be sublane-aligned.
-    cid: [1, T] i32 entry ids (T % 128 == 0).
-    Returns [n_vals, T].  Mosaic lowers jnp.take_along_axis(axis=1) to
-    tpu.dynamic_gather, which requires 128-wide tables — hence the per-128-
-    lane chunking (measured ~22 ns per chunked gather, scripts/bench_gather).
-
-    Block-major row order makes the block-select a ``blocks-1``-deep chain of
-    [n_vals, 128] selects (2 vregs each at n_vals=16) instead of the old
-    value-major layout's n_vals*(blocks-1) single-sublane [1, 128] selects —
-    at cb=5/TILE=4096 that is 128 vs 2048 vreg-ops per fetch.
-    ``narrow_select=True`` reproduces the old op structure for A/B ablation
-    (same values gathered, value-major select cost profile).
-
-    ``fuse``: gather that many 128-lane chunks in ONE dynamic_gather against
-    the stacked table (chunk i's index rows address copy i) — amortizes the
-    per-op fixed cost (~60 ns) across chunks.
-    """
-    t = cid.shape[1]
-    nb = t // 128
-    lo = (cid & 127).reshape(nb, 128)
-    hi = (cid >> 7).reshape(nb, 128)
-    stride = n_vals if stride is None else stride
-    rows = blocks * stride  # rows of ONE table copy
-    chunks = []
-    for g0 in range(0, nb, fuse):
-        k = min(fuse, nb - g0)
-        idx = jnp.concatenate(
-            [
-                jax.lax.broadcast_in_dim(lo[g0 + i : g0 + i + 1, :], (rows, 128), (0, 1))
-                for i in range(k)
-            ],
-            axis=0,
-        ) if k > 1 else jax.lax.broadcast_in_dim(lo[g0 : g0 + 1, :], (rows, 128), (0, 1))
-        g = jnp.take_along_axis(tab[: k * rows], idx, axis=1)  # [k*rows, 128]
-        for i in range(k):
-            gi = g[i * rows : (i + 1) * rows, :]
-            hi_b = hi[g0 + i : g0 + i + 1, :]
-            if narrow_select:  # value-major cost-profile ablation
-                vals = []
-                for v in range(n_vals):
-                    s = gi[v : v + 1, :]
-                    for b in range(1, blocks):
-                        s = jnp.where(hi_b == b, gi[b * stride + v : b * stride + v + 1, :], s)
-                    vals.append(s)
-                chunks.append(jnp.concatenate(vals, axis=0))
-            else:
-                s = gi[0:n_vals, :]
-                for b in range(1, blocks):
-                    s = jnp.where(hi_b == b, gi[b * stride : b * stride + n_vals, :], s)
-                chunks.append(s)  # [n_vals, 128]
-    return jnp.concatenate(chunks, axis=1)  # [n_vals, T]
+def ieee_div(a, b):
+    """f32 a / b rounded to nearest, as one PTX ``div.rn.f32``."""
+    a = jnp.asarray(a, jnp.float32)
+    b = jnp.asarray(b, jnp.float32)
+    shape = jnp.broadcast_shapes(a.shape, b.shape)
+    if not shape:
+        return a / b
+    [q] = plt.elementwise_inline_asm(
+        "div.rn.f32 $0, $1, $2;",
+        args=[jnp.broadcast_to(a, shape), jnp.broadcast_to(b, shape)],
+        constraints="=r,r,r", pack=1,
+        result_shape_dtypes=[jax.ShapeDtypeStruct(shape, jnp.float32)])
+    return q
 
 
-def _gather_rows_multi(tab_n, cids, *, blocks, n_vals, stride=None):
-    """Fetch the same blocked table for N entry ids per lane in ONE
-    dynamic_gather per 128-lane chunk.  tab_n is the table stacked N times
-    ([N*blocks*stride, 128]); returns a list of N [n_vals, T] arrays.
-
-    Used by the j_steps>=2 march: the DDA's cell SEQUENCE is known before
-    any quadratic runs (advance direction depends only on t_nx/t_nz, never
-    on hit results — hits only STOP the march), so all j march steps'
-    candidate fetches issue together as one gather per chunk — removing the
-    fetch -> advance -> fetch serialization that made the fetch 45% of the
-    iteration's serial cost (scripts/grid_iterbench.py).  Lanes that stop
-    early get unused (masked) fetches for the speculative tail cells.
-    """
-    n = len(cids)
-    t = cids[0].shape[1]
-    nb = t // 128
-    los = [(c & 127).reshape(nb, 128) for c in cids]
-    his = [(c >> 7).reshape(nb, 128) for c in cids]
-    stride = n_vals if stride is None else stride
-    rows = blocks * stride
-    outs = [[] for _ in range(n)]
-    for rb in range(nb):
-        idx = jnp.concatenate(
-            [
-                jax.lax.broadcast_in_dim(lo[rb : rb + 1, :], (rows, 128), (0, 1))
-                for lo in los
-            ],
-            axis=0,
-        )
-        g = jnp.take_along_axis(tab_n[: n * rows], idx, axis=1)  # [n*rows, 128]
-        for i in range(n):
-            gi = g[i * rows : (i + 1) * rows, :]
-            h = his[i][rb : rb + 1, :]
-            s = gi[0:n_vals, :]
-            for b in range(1, blocks):
-                s = jnp.where(h == b, gi[b * stride : b * stride + n_vals, :], s)
-            outs[i].append(s)
-    return [jnp.concatenate(o, axis=1) for o in outs]
-
-
-def _slab_inv(o_c, d_c, inv, lo, hi):
-    """Ray vs axis slab [lo, hi] -> (t_enter, t_exit) using a precomputed
-    reciprocal (shared with the paged kernel); degenerate d handled
-    (inside -> (-BIG, BIG), outside -> empty)."""
-    ta = (lo - o_c) * inv
-    tb = (hi - o_c) * inv
-    t0 = jnp.minimum(ta, tb)
-    t1 = jnp.maximum(ta, tb)
-    deg = d_c == 0.0
-    inside = (o_c >= lo) & (o_c <= hi)
-    t0 = jnp.where(deg, jnp.where(inside, -BIG, BIG), t0)
-    t1 = jnp.where(deg, jnp.where(inside, BIG, -BIG), t1)
-    return t0, t1
-
-
-def _quadratic(ox, oy, oz, dx, dy, dz, a, od, oo, inv_a, cx, cy, cz, kc, *,
-               tmin, tmax, skip_tmax):
-    """shader.rint:44-60 on row data — the exact op order of
-    megakernel.block_hit (bit-parity contract)."""
-    cd = cx * dx + cy * dy + cz * dz
-    co = cx * ox + cy * oy + cz * oz
-    b = od - cd
-    c = oo - 2.0 * co + kc
-    disc = b * b - a * c
-    sq = jnp.sqrt(disc)  # NaN on miss; comparisons below then stay False
-    t1 = (-b - sq) * inv_a
-    t2 = (-b + sq) * inv_a
-    if skip_tmax:
-        t1_ok = t1 >= tmin
-        t2_ok = t2 >= tmin
-    else:
-        t1_ok = (t1 >= tmin) & (t1 <= tmax)
-        t2_ok = (t2 >= tmin) & (t2 <= tmax)
-    return jnp.where(t1_ok, t1, jnp.where(t2_ok, t2, BIG))
-
-
-def _iterate(st, acc_ref, fresh_ref, lane, scal_ref, vpr_ref, gscal_ref,
-             gtab_ref, gttab_ref, ctab, atab, *, m_slots, n_lanes, p_total, width,
-             max_depth, tmin, tmax, skip_tmax, j_steps, cb, ab, ablate, fuse,
-             five=False, n_slots=N_SLOTS, ttab=None, cols=slice(None), rr=None,
-             passign_ref=None, pnext_ref=None):
-    """One wavefront iteration: [start new segments] -> [J DDA steps] ->
-    [shade/accumulate/regen lanes whose segment completed].
-
-    ``acc_ref`` is the aliased state ref holding the 3*M acc rows; they are
-    read-modify-written only on iterations where some lane advances pixels.
-    ``cols`` restricts the acc/fresh ref accesses to this iteration's column
-    group (the GROUPS interleave; the st rows arrive pre-sliced).
-    """
-    (ox, oy, oz, dx, dy, dz, fx, fy, tx_, ty_, tz_,
-     t_b, t_end, t_nx, t_nz, bkey, wcx, wcz, cr_, cg_, cb2_,
-     seed, mrow, sidx, depth, alive_i, march_i, icx, icz, cidx) = st
-    alive = alive_i != 0
-    marching = march_i != 0
-
-    spp_i = scal_ref[0, S_SPP]  # samples per (full) progressive call
-    number0 = scal_ref[0, S_NUMBER]  # first call's RenderCallInfo.number
-    n_calls = scal_ref[0, S_NCALLS]  # progressive calls merged in-kernel
-    spp_last = scal_ref[0, S_SPPLAST]  # samples of the dispatch's LAST call
-    y0 = scal_ref[0, S_Y0]
-    seed_y0 = scal_ref[0, S_SEEDY0]
-    offx = scal_ref[0, S_OFFX]
-
-    cminx = gscal_ref[0, G_CMINX]
-    cminz = gscal_ref[0, G_CMINZ]
-    cmaxx = gscal_ref[0, G_CMAXX]
-    cmaxz = gscal_ref[0, G_CMAXZ]
-    ncz = gscal_ref[0, G_NCZ]
-    cy_u = gscal_ref[0, G_CY]
-    # cell pitch: every scaling op is exact at the default 1.0 (x*1.0 == x)
-    # and at power-of-two pitches (exponent shifts), so the pitch-1 program's
-    # image bits are unchanged by this generality (models/grid.py contract)
-    s_ = gscal_ref[0, G_S]
-    inv_s = gscal_ref[0, G_INVS]
-
-    a = dx * dx + dy * dy + dz * dz
-    od = ox * dx + oy * dy + oz * dz
-    oo = ox * ox + oy * oy + oz * oz
-    inv_a = 1.0 / a
-
-    # removal ablations (scripts/grid_iterbench.py): replace a section with a
-    # same-shaped passthrough of LIVE rows (no constants — nothing for the
-    # compiler to fold away).  Images are INVALID under cut_*; they exist to
-    # measure each section's serial share on the fixed-iteration dead-lane
-    # harness, which the additive 'X2' probes cannot see (a duplicated
-    # section overlaps its twin; a removed one shortens the critical path).
-    def cut(name):
-        return ("cut_" + name) in ablate
-
-    # ---- on-demand fresh-seed precompute ------------------------------------
-    # The TEA reseed used to run AFTER the termination logic (it needed
-    # pix_done/adv), putting 32 serialized hash rounds on the
-    # shade -> term -> reseed critical path — measured 17.7% of the
-    # iteration (scripts/grid_iterbench.py, cut_tea).  A lane's only two
-    # possible next seeds are pure functions of CARRIED state — same pixel
-    # at call cidx+1, or pixel slot m+1 at call number0 — and they change
-    # ONLY when the lane renews (once per spp samples), so they live in the
-    # ``fresh_ref`` scratch rows (persisted via U_FNC/U_FNP/U_PEND state)
-    # and the 2x32-round hash block runs under a pl.when that fires only
-    # during renew bursts, not every iteration.  Bit-exact: same tea_hash
-    # compositions, same operands.
-    def _assigned_pix(m_idx):
-        """passign[m_idx, lane] via a row-select chain (m_idx is a per-lane
-        i32 slot index; indices outside [1, m_slots) read as the p_total
-        sentinel, matching the arithmetic path's out-of-range semantics).
-        Only called inside burst-gated pl.when blocks — the chain's
-        ~2*m_slots row ops never run on the per-iteration critical path."""
-        nxt = jnp.full_like(m_idx, p_total)
-        for mm in range(1, m_slots):
-            nxt = jnp.where(m_idx == mm, passign_ref[mm : mm + 1, cols], nxt)
-        return nxt
-
-    def _fresh_pair():
-        offx_f = offx.astype(jnp.float32)
-        y0_f = y0.astype(jnp.float32)
-        px_cur = (fx - offx_f).astype(jnp.int32)
-        py_cur = (fy - y0_f).astype(jnp.int32)
-        nc = rngops.tea_hash(  # next call, same pixel
-            rngops.tea_hash(px_cur.astype(jnp.uint32),
-                            (seed_y0 + py_cur).astype(jnp.uint32)),
-            (number0 + cidx + 1).astype(jnp.uint32),
-        )
-        nxt_pix = ((mrow + 1) * n_lanes + lane if passign_ref is None
-                   else _assigned_pix(mrow + 1))
-        npx = nxt_pix % width
-        npy = nxt_pix // width
-        np_ = rngops.tea_hash(  # next pixel slot, first call
-            rngops.tea_hash(npx.astype(jnp.uint32),
-                            (seed_y0 + npy).astype(jnp.uint32)),
-            number0.astype(jnp.uint32),
-        )
-        return nc, np_
-
-    if cut("tea"):
-        fresh_nc = seed
-        fresh_np = seed
-    elif "teaalways" in ablate:  # A/B: unconditional per-iteration hoist
-        fresh_nc, fresh_np = _fresh_pair()
-    else:
-        pend = fresh_ref[2:3, cols]
-
-        @pl.when(jnp.any(pend != 0))
-        def _recompute_fresh():
-            stale = pend != 0
-            nc, np_ = _fresh_pair()
-            fresh_ref[0:1, cols] = jnp.where(stale, nc, fresh_ref[0:1, cols])
-            fresh_ref[1:2, cols] = jnp.where(stale, np_, fresh_ref[1:2, cols])
-            fresh_ref[2:3, cols] = jnp.zeros_like(pend)
-
-        fresh_nc = fresh_ref[0:1, cols]
-        fresh_np = fresh_ref[1:2, cols]
-
-    # gather-structure A/B switches (scripts/grid_ablate.py)
-    fuse = 4 if "fuse4" in ablate else (2 if "fuse2" in ablate else fuse)
-    vmajor = "vmajor" in ablate
-    # padN: the ctab arrives with N dead rows appended to every block
-    # (grid_megakernel_step widens it), so each chunk gather fetches
-    # cb*(stride+N) rows instead of cb*stride while the VALUES — and the
-    # image bits — are unchanged.  The A/B delta is the pure marginal cost
-    # of gather rows in kernel context (measured: +24 rows/block +0.0%,
-    # +48 +1.7% — the chunk gather is fixed-cost-bound at these sizes).
-    stride_pad = next((int(a[3:]) for a in ablate
-                       if a.startswith("pad") and a[3:].isdigit()), 0)
-
-    # ---- segment start: global spheres + grid clip + DDA init -------------
-    need = alive & ~marching
-    t_b = jnp.where(need, BIG, t_b)
-    bkey = jnp.where(need, _TAG, bkey)
-    reps = 0 if cut("globals") else (2 if "global2" in ablate else 1)
-    for rep in range(reps):
-        last = rep == reps - 1
-        for k in range(gtab_ref.shape[0]):
-            tc = _quadratic(ox, oy, oz, dx, dy, dz, a, od, oo, inv_a,
-                            gtab_ref[k, 0], gtab_ref[k, 1], gtab_ref[k, 2],
-                            gtab_ref[k, 3] + (0.0 if last else 1.0),
-                            tmin=tmin, tmax=tmax, skip_tmax=skip_tmax)
-            if last:
-                upd = need & (tc < t_b)
-                t_b = jnp.where(upd, tc, t_b)
-                bkey = jnp.where(upd, _TAG + gtab_ref[k, 4], bkey)
-            else:
-                never = (seed == jnp.uint32(0xFFFFFFFF)) & (tc < -1.0)
-                t_b = jnp.where(never, tc, t_b)
-
-    # ONE reciprocal per axis, reused by the slab clip, the first-crossing
-    # t_nx/t_nz and the per-cell steps dt_x/dt_z: the old code issued 7
-    # divides per iteration (3 in _slab + 2 first crossings + 2 dt) —
-    # divides are long-latency serial ops and the init section measured
-    # 17.2% of the iteration (scripts/grid_iterbench.py, cut_init).
-    # (b-o)*inv differs from (b-o)/d by <= 1 ulp; DDA cell decisions shift
-    # only within the builder's delta-enlarged registration slop, and the
-    # box clip has a one-cell empty guard ring, so the winner set — and the
-    # image bits — are unchanged (models/grid.py exactness contract).
-    inv_x = 1.0 / dx
-    inv_y = 1.0 / dy
-    inv_z = 1.0 / dz
-
-    if cut("init"):
-        march0 = need & (t_b < -1.0)  # never true; skip clip/DDA-init
-    else:
-        t0x, t1x = _slab_inv(ox, dx, inv_x, gscal_ref[0, G_XLO], gscal_ref[0, G_XHI])
-        t0y, t1y = _slab_inv(oy, dy, inv_y, gscal_ref[0, G_YLO], gscal_ref[0, G_YHI])
-        t0z, t1z = _slab_inv(oz, dz, inv_z, gscal_ref[0, G_ZLO], gscal_ref[0, G_ZHI])
-        t_start = jnp.maximum(jnp.maximum(t0x, t0y), jnp.maximum(t0z, tmin))
-        t_end_n = jnp.minimum(jnp.minimum(t1x, t1y), t1z)
-        march0 = need & (t_start <= t_end_n) & (t_start < t_b)
-
-        px0 = ox + t_start * dx
-        pz0 = oz + t_start * dz
-        icx_n = jnp.clip(jnp.floor(px0 * inv_s + 0.5), cminx, cmaxx)
-        icz_n = jnp.clip(jnp.floor(pz0 * inv_s + 0.5), cminz, cmaxz)
-        bx = (icx_n + jnp.where(dx >= 0, 0.5, -0.5)) * s_
-        bz = (icz_n + jnp.where(dz >= 0, 0.5, -0.5)) * s_
-        t_nx_n = jnp.where(dx == 0.0, BIG, (bx - ox) * inv_x)
-        t_nz_n = jnp.where(dz == 0.0, BIG, (bz - oz) * inv_z)
-
-        t_end = jnp.where(need, t_end_n, t_end)
-        t_nx = jnp.where(march0, t_nx_n, t_nx)
-        t_nz = jnp.where(march0, t_nz_n, t_nz)
-        icx = jnp.where(march0, icx_n.astype(jnp.int32), icx)
-        icz = jnp.where(march0, icz_n.astype(jnp.int32), icz)
-    marching = marching | march0
-
-    # ---- DDA march: j_steps cells ------------------------------------------
-    step_x = jnp.where(dx >= 0, 1, -1)
-    step_z = jnp.where(dz >= 0, 1, -1)
-    dt_x = jnp.where(dx == 0.0, BIG, jnp.abs(inv_x) * s_)
-    dt_z = jnp.where(dz == 0.0, BIG, jnp.abs(inv_z) * s_)
-
-    def _cid(x, z):
-        return ((x.astype(jnp.float32) - cminx) * ncz
-                + (z.astype(jnp.float32) - cminz)).astype(jnp.int32)
-
-    # speculative multi-cell fetch (the j>=2 production path): the advance
-    # DIRECTION depends only on t_nx/t_nz (hits only STOP the march), so the
-    # whole j-cell chain is known before any quadratic runs — all j fetches
-    # issue as ONE gather per chunk (ctab arrives pre-stacked j times).
-    # Lanes that stop after step s get unused (masked) fetches for the
-    # speculative tail, exactly like the sequential path's redundant
-    # same-cell fetch — images are bit-identical ("nodual" ablation switches
-    # the sequential structure back on for A/B).
-    dual = (j_steps >= 2 and "nodual" not in ablate and not cut("fetch")
-            and not vmajor and fuse == 1)
-    # slot layout: 4 values (cx, cz, kc, id) with cy a gscal scalar for
-    # uniform-field-height scenes; 5 values (cx, cy, cz, kc, id) otherwise
-    # (models/grid.py GridTables.has_cy).  Stride is 8-aligned either way
-    # (block starts must be sublane-aligned for the chunk lane-concat).
-    w = 5 if five else 4
-    nv = w * n_slots
-    stride = -(-nv // 8) * 8 + stride_pad
-
-    def _slot(vals, s):
-        """(cx, cy, cz, kc, id) rows of slot s under either layout."""
-        b = w * s
-        cy_s = vals[b + 1 : b + 2, :] if five else cy_u
-        return (vals[b : b + 1, :], cy_s,
-                vals[b + w - 3 : b + w - 2, :],
-                vals[b + w - 2 : b + w - 1, :],
-                vals[b + w - 1 : b + w, :])
-
-    vals_pair = None
-    if dual:
-        # speculative cell chain: replays the in-loop advance (same cross
-        # compare, same clip) withOUT the cont gate — a lane still marching
-        # at step s necessarily advanced at every prior step, so its real
-        # (icx, icz, t_nx, t_nz) match the chain; a stopped lane's tail
-        # fetches are dead (upd is masked by `marching`).
-        sicx, sicz, stnx, stnz = icx, icz, t_nx, t_nz
-        cids = [_cid(icx, icz)]
-        for _ in range(j_steps - 1):
-            crs = stnx <= stnz
-            sicx = jnp.where(
-                crs,
-                jnp.clip(sicx + step_x, cminx.astype(jnp.int32),
-                         cmaxx.astype(jnp.int32)),
-                sicx)
-            sicz = jnp.where(
-                ~crs,
-                jnp.clip(sicz + step_z, cminz.astype(jnp.int32),
-                         cmaxz.astype(jnp.int32)),
-                sicz)
-            stnx = jnp.where(crs, stnx + dt_x, stnx)
-            stnz = jnp.where(~crs, stnz + dt_z, stnz)
-            cids.append(_cid(sicx, sicz))
-        vals_pair = _gather_rows_multi(ctab, cids, blocks=cb, n_vals=nv,
-                                       stride=stride)
-
-    for jstep in range(j_steps):
-        cid = _cid(icx, icz)
-        if dual:
-            vals = vals_pair[jstep]
-        elif cut("fetch"):
-            vals = jax.lax.broadcast_in_dim(ox, (nv, ox.shape[1]), (0, 1))
-        else:
-            vals = _gather_rows(ctab, cid, blocks=cb, n_vals=nv, stride=stride,
-                                fuse=fuse, narrow_select=vmajor)
-        if "fetch2" in ablate:  # additive cost probe: duplicate the fetch
-            v2 = _gather_rows(ctab, cid + 1, blocks=cb, n_vals=nv,
-                              stride=stride, fuse=fuse, narrow_select=vmajor)
-            never = (seed == jnp.uint32(0xFFFFFFFF)) & (cid < -1)
-            vals = jnp.where(never, v2, vals)
-        for s in range(n_slots):
-            s_cx, s_cy, s_cz, s_kc, s_id = _slot(vals, s)
-            if cut("quad"):
-                tc = s_cx + oy
-            else:
-                tc = _quadratic(ox, oy, oz, dx, dy, dz, a, od, oo, inv_a,
-                                s_cx, s_cy, s_cz, s_kc,
-                                tmin=tmin, tmax=tmax, skip_tmax=skip_tmax)
-            upd = marching & (tc < t_b)
-            t_b = jnp.where(upd, tc, t_b)
-            bkey = jnp.where(upd, s_id, bkey)
-            # (winner centers come from the resolve gather's rows 5-7 now;
-            # wcx/wcz ride the shared state layout unwritten for the paged
-            # kernel's sake but the grid path no longer maintains them)
-        if "isect2" in ablate:  # additive cost probe: duplicate the 4-slot
-            never = (seed == jnp.uint32(0xFFFFFFFF)) & (cid < -1)  # quadratics
-            tacc = t_b
-            for s in range(n_slots):
-                s_cx, s_cy, s_cz, s_kc, _ = _slot(vals, s)
-                tc2 = _quadratic(ox, oy, oz, dx, dy, dz, a, od, oo, inv_a,
-                                 s_cx + 1.0, s_cy, s_cz, s_kc,
-                                 tmin=tmin, tmax=tmax, skip_tmax=skip_tmax)
-                upd2 = marching & (tc2 < tacc)
-                tacc = jnp.where(upd2, tc2, tacc)
-            t_b = jnp.where(never, tacc, t_b)
-        t_exit = jnp.minimum(t_nx, t_nz)
-        cont = marching & (t_exit < t_b) & (t_exit < t_end)
-        cross_x = t_nx <= t_nz
-        adv_x = cont & cross_x
-        adv_z = cont & ~cross_x
-        icx = jnp.where(
-            adv_x,
-            jnp.clip(icx + step_x, cminx.astype(jnp.int32), cmaxx.astype(jnp.int32)),
-            icx)
-        icz = jnp.where(
-            adv_z,
-            jnp.clip(icz + step_z, cminz.astype(jnp.int32), cmaxz.astype(jnp.int32)),
-            icz)
-        t_nx = jnp.where(adv_x, t_nx + dt_x, t_nx)
-        t_nz = jnp.where(adv_z, t_nz + dt_z, t_nz)
-        marching = cont
-        if "dda2" in ablate:  # additive cost probe: duplicate DDA advance
-            never = (seed == jnp.uint32(0xFFFFFFFF)) & (cid < -2)
-            t_exit2 = jnp.minimum(t_nx + 0.5, t_nz)
-            cont2 = marching & (t_exit2 < t_b) & (t_exit2 < t_end)
-            cx2 = t_nx + 0.5 <= t_nz
-            a_x2 = cont2 & cx2
-            a_z2 = cont2 & ~cx2
-            icx2 = jnp.where(
-                a_x2,
-                jnp.clip(icx + step_x, cminx.astype(jnp.int32), cmaxx.astype(jnp.int32)),
-                icx)
-            icz2 = jnp.where(
-                a_z2,
-                jnp.clip(icz + step_z, cminz.astype(jnp.int32), cmaxz.astype(jnp.int32)),
-                icz)
-            icx = jnp.where(never, icx2, icx)
-            icz = jnp.where(never, icz2, icz)
-            t_nx = jnp.where(never & a_x2, t_nx + dt_x, t_nx)
-            t_nz = jnp.where(never & a_z2, t_nz + dt_z, t_nz)
-            marching = (marching & ~never) | (never & cont2)
-
-    seg_done = alive & ~marching
-    hit = t_b < BIG
-
-    # ---- winner resolution: bkey (global sphere id) -> 5 attr rows ---------
-    # bkey carries the id straight from the candidate fetch, so this is ONE
-    # gather; the previous cell*4+slot encoding needed an itab gather whose
-    # result FED the atab gather — two serialized gathers on the
-    # latency-bound critical path.
-    is_direct = bkey >= _TAG
-    bidx = jnp.where(is_direct, bkey - _TAG, bkey).astype(jnp.int32)
-    if cut("resolve"):
-        at = jax.lax.broadcast_in_dim(bkey, (8, bkey.shape[1]), (0, 1))
-    else:
-        at = _gather_rows(atab, bidx, blocks=ab, n_vals=8, fuse=fuse,
-                          narrow_select=vmajor)
-    if "resolve2" in ablate:  # additive cost probe: duplicate atab
-        at2 = _gather_rows(atab, bidx + 1, blocks=ab, n_vals=8,
-                           fuse=fuse, narrow_select=vmajor)
-        never = (seed == jnp.uint32(0xFFFFFFFF)) & (bidx < -1)
-        at = jnp.where(never, at2, at)
-
-    mat = at[0:1, :]
-    c0x, c0y, c0z = at[1:2, :], at[2:3, :], at[3:4, :]
-    fuzz = at[4:5, :]
-    # the winner's CENTER rides the same gather (atab rows 5-7) for grid
-    # and global winners alike — no gtab select chain, no carried-center
-    # read (the old chain cost 7 selects per gtab row and capped how many
-    # globals were affordable)
-    cenx, ceny, cenz = at[5:6, :], at[6:7, :], at[7:8, :]
-    if ttab is not None:
-        # textured FIELD spheres exist: tex/c1 for ALL winners (globals
-        # included — ttab covers every sphere id) ride one more gather
-        tt = _gather_rows(ttab, bidx, blocks=ab, n_vals=4, stride=8,
-                          fuse=fuse, narrow_select=vmajor)
-        tex, c1x, c1y, c1z = tt[0:1, :], tt[1:2, :], tt[2:3, :], tt[3:4, :]
-    else:
-        # tex / checker second color exist only on TEXTURED globals (builder
-        # contract — gttab holds just those rows, usually 1: the checkered
-        # ground): 4 selects per row, matched by sphere id (padding rows carry
-        # id -2 and real grid winners -1, so neither ever matches).  Solid
-        # globals and boundary-line spills get the 0-defaults, which IS what
-        # texture 0 means, so the chain cost doesn't scale with the spill.
-        bidx_f = jnp.where(is_direct, bkey - _TAG, np.float32(-1.0))
-        tex = jnp.zeros_like(t_b)
-        c1x = jnp.zeros_like(t_b)
-        c1y = jnp.zeros_like(t_b)
-        c1z = jnp.zeros_like(t_b)
-        for k in range(gttab_ref.shape[0]):
-            sel = bidx_f == gttab_ref[k, 4]
-            tex = jnp.where(sel, gttab_ref[k, 6], tex)
-            c1x = jnp.where(sel, gttab_ref[k, 10], c1x)
-            c1y = jnp.where(sel, gttab_ref[k, 11], c1y)
-            c1z = jnp.where(sel, gttab_ref[k, 12], c1z)
-
-    # ---- shading: shader.rchit (shared row implementation) -------------
-    if cut("shade"):
-        (px_, py_, pz_, ax, ay, az, sdx, sdy, sdz) = (
-            ox, oy, oz, dx, dy, dz, dx, dy, dz)
-        does_scatter = t_b < BIG
-        seed_h = seed
-    else:
-        (px_, py_, pz_, ax, ay, az, sdx, sdy, sdz, does_scatter,
-         seed_h) = shade_rows(ox, oy, oz, dx, dy, dz, t_b, seed,
-                              cenx, ceny, cenz, mat, tex, c0x, c0y, c0z,
-                              c1x, c1y, c1z, fuzz, cut_sin=cut("sin"),
-                              redot="redot" in ablate)
-    if "shade2" in ablate:  # additive cost probe: duplicate the shading
-        never = (seed == jnp.uint32(0xFFFFFFFF)) & (bidx < -1)
-        s2 = shade_rows(ox, oy, oz, dx, dy, dz, t_b + 1.0, seed,
-                        cenx, ceny, cenz, mat, tex, c0x, c0y, c0z,
-                        c1x, c1y, c1z, fuzz)
-        px_ = jnp.where(never, s2[0], px_)
-        py_ = jnp.where(never, s2[1], py_)
-        pz_ = jnp.where(never, s2[2], pz_)
-        ax = jnp.where(never, s2[3], ax)
-        ay = jnp.where(never, s2[4], ay)
-        az = jnp.where(never, s2[5], az)
-        sdx = jnp.where(never, s2[6], sdx)
-        sdy = jnp.where(never, s2[7], sdy)
-        sdz = jnp.where(never, s2[8], sdz)
-        does_scatter = does_scatter | (never & s2[9])
-        seed_h = jnp.where(never, s2[10], seed_h)
-
-    # ---- termination & accumulation (shader.rgen:70-89) -------------------
-    scatters = hit & does_scatter
-    deep = (depth + 1) >= max_depth
-    cont_b = seg_done & scatters & ~deep
-    # Russian-roulette path termination (fast mode, VERDICT r4 item 1):
-    # unbiased — a continuing path at depth+1 >= d0 survives with
-    # p = clamp(max component of new throughput, pmin, 1) (halved past d1
-    # to bound glass paths whose throughput stays ~1) and its throughput is
-    # divided by p.  Expectation is unchanged (the statistical contract to
-    # the reference holds); sample VALUES differ from the GLSL stream, so
-    # rr=None (exact mode) keeps the bit-parity chain for tests.  Measured
-    # useful-iteration savings: 0.758x at (2, 16) — scripts/rr_study.py.
-    ntx = tx_ * ax
-    nty = ty_ * ay
-    ntz = tz_ * az
-    if rr is not None:
-        d0, d1, pmin = rr
-        dnext = depth + 1
-        p = jnp.minimum(np.float32(1.0), jnp.maximum(
-            np.float32(pmin), jnp.maximum(ntx, jnp.maximum(nty, ntz))))
-        if d1:
-            p = jnp.where(dnext >= d1, p * np.float32(0.5), p)
-        considered = cont_b & (dnext >= d0)
-        seed_pre = jnp.where(seg_done & hit, seed_h, seed)
-        seed_rr, u_rr = rngops.random_float(seed_pre)
-        killed = considered & (u_rr >= p)
-        cont_b = cont_b & ~killed
-        ntx = jnp.where(considered, ntx / p, ntx)
-        nty = jnp.where(considered, nty / p, nty)
-        ntz = jnp.where(considered, ntz / p, ntz)
-    term = seg_done & ~cont_b
-    lx = jnp.where(hit, jnp.where(does_scatter, 0.0, ax), _SKY[0])
-    ly = jnp.where(hit, jnp.where(does_scatter, 0.0, ay), _SKY[1])
-    lz = jnp.where(hit, jnp.where(does_scatter, 0.0, az), _SKY[2])
-    cbx = jnp.where(term, tx_ * lx, 0.0)
-    cby = jnp.where(term, ty_ * ly, 0.0)
-    cbz = jnp.where(term, tz_ * lz, 0.0)
-    if "iterstats" in ablate:
-        # probe mode: acc.r counts the issued iterations attributed to the
-        # lane's current (pixel, call) chunk instead of color — the
-        # per-pixel cost map the balanced-assignment builder consumes
-        # (scripts/lane_balance.py).  g/b stay color so goldens can sanity
-        # the probe ran the same paths.
-        cbx = alive.astype(jnp.float32)
-
-    # accumulate into the lane's current-pixel sum (3 masked adds)
-    cur_x = cr_ + cbx
-    cur_y = cg_ + cby
-    cur_z = cb2_ + cbz
-
-    seed_a = jnp.where(seg_done & hit, seed_h, seed)
-    if rr is not None:
-        seed_a = jnp.where(considered, seed_rr, seed_a)
-
-    # ---- regen: next sample, next progressive call, or next pixel ----------
-    # A merged dispatch runs n_calls progressive calls back-to-back per
-    # pixel (numbers number0..number0+n_calls-1) before advancing the lane
-    # to its next pixel — eliminating the inter-call wavefront drains the
-    # host-loop version pays.  cur is flushed into the acc slot at EVERY
-    # call boundary, reproducing the unmerged path's accumulation order
-    # bit-for-bit (acc += call_sum in call order, per pixel).
-    cur_spp = jnp.where(cidx + 1 >= n_calls, spp_last, spp_i)
-    more = term & (sidx < cur_spp)
-    chunk_done = term & ~more  # current (pixel, call) chunk complete
-
-    # flush the finished chunk's sum into its acc slot — fires once per
-    # spp samples per lane.  Gated per 8-SLOT GROUP: lanes advance their m
-    # slots roughly in sync, so when a flush burst fires only one or two
-    # groups are active and the RMW loop touches 24-48 rows instead of
-    # 3*m_slots (192 at M=64) — this is what made larger M lose before
-    # (the flush loop scaled with M; r2 measured M=128 12% slower).
-    # The whole loop sits under ONE outer pl.when: most iterations flush
-    # nothing, so the common case pays one any-reduce instead of m_slots/8
-    # per-group reduces ("flushflat" ablation restores the flat structure).
-    def _flush_groups():
-        for grp in range(-(-m_slots // 8)):
-            sel_g = chunk_done & ((mrow >> 3) == grp)
-
-            @pl.when(jnp.any(sel_g))
-            def _flush(grp=grp, sel_g=sel_g):
-                for m in range(grp * 8, min(grp * 8 + 8, m_slots)):
-                    sel = sel_g & (mrow == m)
-                    for c, cur in enumerate((cur_x, cur_y, cur_z)):
-                        row = acc_ref[3 * m + c : 3 * m + c + 1, cols]
-                        acc_ref[3 * m + c : 3 * m + c + 1, cols] = (
-                            row + jnp.where(sel, cur, 0.0))
-
-    if "flushflat" in ablate:
-        _flush_groups()
-    else:
-        pl.when(jnp.any(chunk_done))(_flush_groups)
-
-    cur_x = jnp.where(chunk_done, 0.0, cur_x)
-    cur_y = jnp.where(chunk_done, 0.0, cur_y)
-    cur_z = jnp.where(chunk_done, 0.0, cur_z)
-    more_calls = chunk_done & (cidx + 1 < n_calls)
-    pix_done = chunk_done & ~more_calls
-    m2 = mrow + pix_done.astype(jnp.int32)
-    cidx2 = jnp.where(pix_done, 0, cidx + more_calls.astype(jnp.int32))
-    if passign_ref is None:
-        pix2 = m2 * n_lanes + lane
-    else:
-        # balanced assignment: the advancing lanes' next pixel comes from
-        # the passign table.  The select chain runs only during (rare)
-        # pixel-advance bursts; off-burst reads of pnext_ref are stale or
-        # uninitialized but every consumer below is masked by pix_done/adv.
-        @pl.when(jnp.any(pix_done))
-        def _lookup_next():
-            pnext_ref[0:1, cols] = _assigned_pix(m2)
-
-        pix2 = pnext_ref[0:1, cols]
-    valid2 = (m2 < m_slots) & (pix2 < p_total)
-    adv = pix_done & valid2
-    px2 = pix2 % width
-    py2 = pix2 // width
-    fx2 = (offx + px2).astype(jnp.float32)
-    fy2 = (y0 + py2).astype(jnp.float32)
-    renew = more_calls | adv  # needs a fresh TEA seed (new pixel OR new call)
-    # the two candidate seeds were hoisted to the iteration top (see above);
-    # adv => slot m+1 at number0 (pix2 == (mrow+1)*n+lane when pix_done),
-    # more_calls => same pixel at number0+cidx+1
-    fresh = jnp.where(adv, fresh_np, fresh_nc)
-    regen = more | renew
-    seed_c = jnp.where(renew, fresh, seed_a)
-    if not cut("tea") and "teaalways" not in ablate:
-        # renewed lanes' precomputed seeds are now stale; the pl.when block
-        # refreshes them next iteration, long before their next renew
-        fresh_ref[2:3, cols] = jnp.where(renew, jnp.uint32(1),
-                                         fresh_ref[2:3, cols])
-    fxn = jnp.where(adv, fx2, fx)
-    fyn = jnp.where(adv, fy2, fy)
-    if cut("camera"):
-        seed_r, (cox, coy, coz), (cdx, cdy, cdz) = (
-            seed_c, (ox, oy, oz), (dx, dy, dz))
-    else:
-        seed_r, (cox, coy, coz), (cdx, cdy, cdz) = _camera_rays_rows(
-            seed_c, fxn, fyn, vpr_ref)
-    if "camera2" in ablate:  # additive cost probe: duplicate ray regen
-        s2_, (c2x, c2y, c2z), (d2x, d2y, d2z) = _camera_rays_rows(
-            seed_c + jnp.uint32(1), fxn, fyn, vpr_ref)
-        del s2_
-        never = (seed == jnp.uint32(0xFFFFFFFF)) & (c2x + d2x < -1e30)
-        cox = jnp.where(never, c2x + c2y + c2z + d2y + d2z, cox)
-
-    bx_, by_, bz_ = _norm3(sdx, sdy, sdz)
-
-    st2 = (
-        jnp.where(cont_b, px_, jnp.where(regen, cox, ox)),
-        jnp.where(cont_b, py_, jnp.where(regen, coy, oy)),
-        jnp.where(cont_b, pz_, jnp.where(regen, coz, oz)),
-        jnp.where(cont_b, bx_, jnp.where(regen, cdx, dx)),
-        jnp.where(cont_b, by_, jnp.where(regen, cdy, dy)),
-        jnp.where(cont_b, bz_, jnp.where(regen, cdz, dz)),
-        fxn,
-        fyn,
-        jnp.where(cont_b, ntx, jnp.where(regen, 1.0, tx_)),
-        jnp.where(cont_b, nty, jnp.where(regen, 1.0, ty_)),
-        jnp.where(cont_b, ntz, jnp.where(regen, 1.0, tz_)),
-        t_b,
-        t_end,
-        t_nx,
-        t_nz,
-        bkey,
-        wcx,
-        wcz,
-        cur_x,
-        cur_y,
-        cur_z,
-        jnp.where(seg_done, jnp.where(regen, seed_r, seed_a), seed),
-        m2,
-        jnp.where(renew, 1, sidx + more.astype(jnp.int32)),
-        jnp.where(cont_b, depth + 1, jnp.where(regen, 0, depth)),
-        (marching | (seg_done & (cont_b | regen))).astype(jnp.int32),
-        marching.astype(jnp.int32),
-        icx,
-        icz,
-        cidx2,
-    )
-    return st2
-
-
-def _kernel(scal_ref, vpr_ref, gscal_ref, gtab_ref, gttab_ref, ctab_ref,
-            atab_ref, fin_ref, uin_ref, fout_ref, uout_ref, acc_ref,
-            fresh_ref, *, m_slots, n_lanes, p_total, width, max_depth, tmin,
-            tmax, k_steps, j_steps, skip_tmax, cb, ab, ablate, unroll, fuse,
-            groups=1, five=False, n_slots=N_SLOTS, ttab_ref=None, rr=None,
-            passign_ref=None, pnext_ref=None):
-    gw = TILE // groups
-    ctab = ctab_ref[:, :]
-    ttab = None if ttab_ref is None else ttab_ref[:, :]
-    atab = atab_ref[:, :]
-    fuse = 4 if "fuse4" in ablate else (2 if "fuse2" in ablate else fuse)
-    if fuse > 1:
-        # stacked copies for the fused multi-chunk gather (hoisted out of
-        # the iteration loop; chunk i's index rows address copy i)
-        ctab = jnp.concatenate([ctab] * fuse, axis=0)
-        atab = jnp.concatenate([atab] * fuse, axis=0)
-        if ttab is not None:
-            ttab = jnp.concatenate([ttab] * fuse, axis=0)
-    elif (j_steps >= 2 and "nodual" not in ablate and "cut_fetch" not in ablate
-          and "vmajor" not in ablate):
-        # speculative-fetch production path (j>=2): all j march steps'
-        # fetches in one gather against the j-times-stacked cell table
-        # (_iterate's speculative cell chain)
-        ctab = jnp.concatenate([ctab] * j_steps, axis=0)
-
-    # ---- per-tile dead-skip (drain harvest, VERDICT r4 item 1) ----------
-    # Dead-lane state is a FIXED POINT of _iterate (every state write is
-    # masked by alive/marching/renew, and the fresh-seed recompute's
-    # consumers are renew-masked), so a tile whose lanes are all dead can
-    # pass its state through untouched — bit-identical by construction,
-    # and it turns the drain's dead tiles from K full iterations into one
-    # any-reduce + the block DMA.  Pays off at dispatch tails and, with
-    # the driver's straggler compaction (trace.py), throughout the drain.
-    # "noskipdead" ablate switch restores the unconditional body for A/Bs.
-    # program_id must be read OUTSIDE the pl.when gate: inside the cond's
-    # sub-jaxpr the interpret-mode lowering can't substitute it
-    # (NotImplementedError: no CPU rule for 'program_id')
+def _kernel(scal, vpr, gscal, gtab, cellf, cellid, cellcnt, atab, acc_in,
+            acc, iters, *, block, n_lanes, m_slots, p_total, width,
+            max_depth, rr, div, spare):
     pid = pl.program_id(0)
-    if "noskipdead" not in ablate:
-        tile_alive = jnp.any(uin_ref[U_ALIVE : U_ALIVE + 1, :] != 0)
+    lane = pid * block + jnp.arange(block, dtype=jnp.int32)
+    alive0 = (lane < n_lanes) & (scal[wf.S_SPP] > 0)
+    st0 = wf.init_lanes(lane, alive0, scal, vpr, width, div)
 
-        @pl.when(jnp.logical_not(tile_alive))
-        def _passthrough():
-            fout_ref[:, :] = fin_ref[:, :]
-            uout_ref[:, :] = uin_ref[:, :]
+    def body(c):
+        st, it = c
+        t, idx, hit, done, st = wf.grid_hit(st, gtab, cellf, cellid, cellcnt,
+                                            gscal, div=div)
+        st, flush, pix, cur = wf.step(
+            st, lane, t, idx, hit, done, scal=scal, vpr=vpr, atab=atab,
+            m_slots=m_slots, n_lanes=n_lanes, p_total=p_total, width=width,
+            max_depth=max_depth, rr=rr, div=div, gate_reseed=True)
+        # the last block's padding lanes never flush, and compiled masked
+        # stores write nothing; the interpreter writes masked lanes back,
+        # so there they go to spare columns instead of aliasing live pixels
+        addr = pix
+        if spare:
+            addr = jnp.where(lane < n_lanes, pix, p_total + lane % block)
+        for ch in range(3):
+            old = plt.load(acc_in.at[ch, addr], mask=flush, other=0.0)
+            plt.store(acc.at[ch, addr], old + cur[ch], mask=flush)
+        return st, it + 1
 
-        run_gate = pl.when(tile_alive)
-    else:
-        def run_gate(fn):
-            return fn()
-
-    @run_gate
-    def _run_body():
-        _kernel_body(
-            scal_ref, vpr_ref, gscal_ref, gtab_ref, gttab_ref, ctab, atab,
-            fin_ref, uin_ref, fout_ref, uout_ref, acc_ref, fresh_ref,
-            ttab=ttab, m_slots=m_slots, n_lanes=n_lanes, p_total=p_total,
-            width=width, max_depth=max_depth, tmin=tmin, tmax=tmax,
-            k_steps=k_steps, j_steps=j_steps, skip_tmax=skip_tmax, cb=cb,
-            ab=ab, ablate=ablate, unroll=unroll, fuse=fuse, groups=groups,
-            five=five, n_slots=n_slots, rr=rr, passign_ref=passign_ref,
-            pnext_ref=pnext_ref, gw=gw, pid=pid)
-
-
-def _kernel_body(scal_ref, vpr_ref, gscal_ref, gtab_ref, gttab_ref, ctab,
-                 atab, fin_ref, uin_ref, fout_ref, uout_ref, acc_ref,
-                 fresh_ref, *, ttab, m_slots, n_lanes, p_total, width,
-                 max_depth, tmin, tmax, k_steps, j_steps, skip_tmax, cb, ab,
-                 ablate, unroll, fuse, groups, five, n_slots, rr,
-                 passign_ref, pnext_ref, gw, pid):
-
-    def _load(g):
-        cs = slice(g * gw, (g + 1) * gw)
-        lane_g = (
-            jax.lax.broadcasted_iota(jnp.int32, (1, gw), 1)
-            + pid * TILE + g * gw
-        )
-
-        def fr(r):
-            return fin_ref[r : r + 1, cs]
-
-        def ur(r):
-            return uin_ref[r : r + 1, cs]
-
-        st = (
-            fr(R_O), fr(R_O + 1), fr(R_O + 2),
-            fr(R_D), fr(R_D + 1), fr(R_D + 2),
-            fr(R_FX),
-            fr(R_FY),
-            fr(R_THR), fr(R_THR + 1), fr(R_THR + 2),
-            fr(R_TB),
-            fr(R_TE),
-            fr(R_TNX),
-            fr(R_TNZ),
-            fr(R_BKEY),
-            fr(R_WCX),
-            fr(R_WCZ),
-            fr(R_CUR), fr(R_CUR + 1), fr(R_CUR + 2),
-            ur(U_SEED),
-            ur(U_M).astype(jnp.int32),
-            ur(U_SIDX).astype(jnp.int32),
-            ur(U_DEPTH).astype(jnp.int32),
-            (ur(U_ALIVE) != 0).astype(jnp.int32),
-            (ur(U_MARCH) != 0).astype(jnp.int32),
-            ur(U_ICX).astype(jnp.int32),
-            ur(U_ICZ).astype(jnp.int32),
-            ur(U_CALL).astype(jnp.int32),
-        )
-        return st, lane_g, cs
-
-    # The 3*M acc rows live in a VMEM scratch ref RMW'd by _iterate's gated
-    # flush (never loop-carried); copied in/out once per invocation.  They
-    # must NOT be flushed into fout mid-loop: Mosaic's output windows do not
-    # inherit unwritten rows from an aliased input (measured: they contain
-    # another grid block's staged data), so every fout row is written below.
-    acc_ref[:, :] = fin_ref[R_ACC : R_ACC + 3 * m_slots, :]
-    # precomputed fresh-seed rows (fnc, fnp, pend) — mutable within the
-    # invocation (pl.when recompute), persisted through the u32 state
-    fresh_ref[:, :] = uin_ref[U_FNC : U_FNC + 3, :]
-
-    loaded = [_load(g) for g in range(groups)]
-    step_g = [
-        functools.partial(
-            _iterate, acc_ref=acc_ref, fresh_ref=fresh_ref, lane=lane_g,
-            cols=cs, scal_ref=scal_ref,
-            vpr_ref=vpr_ref, gscal_ref=gscal_ref, gtab_ref=gtab_ref,
-            gttab_ref=gttab_ref, ctab=ctab,
-            atab=atab, m_slots=m_slots, n_lanes=n_lanes,
-            p_total=p_total, width=width, max_depth=max_depth, tmin=tmin,
-            tmax=tmax, skip_tmax=skip_tmax, j_steps=j_steps, cb=cb, ab=ab,
-            ablate=ablate, fuse=fuse, five=five, n_slots=n_slots, ttab=ttab,
-            rr=rr, passign_ref=passign_ref, pnext_ref=pnext_ref,
-        )
-        for (_, lane_g, cs) in loaded
-    ]
-    st = loaded[0][0]
-    step = step_g[0]
-
-    if groups > 1:
-        # interleaved column groups: one fori_loop carrying all G state
-        # tuples; each iteration steps every group, so the basic block holds
-        # G independent dependency chains for Mosaic to schedule across
-        def body_g(_, sts):
-            return tuple(step_g[g](sts[g]) for g in range(groups))
-
-        sts = jax.lax.fori_loop(
-            0, k_steps, body_g, tuple(st for (st, _, _) in loaded))
-        for g, (_, _, cs) in enumerate(loaded):
-            stg = sts[g]
-            for i in range(21):
-                fout_ref[i : i + 1, cs] = stg[i]
-            (seed, mrow, sidx, depth, alive, march, icx, icz, cidx) = stg[21:]
-            uout_ref[U_SEED : U_SEED + 1, cs] = seed
-            uout_ref[U_M : U_M + 1, cs] = mrow.astype(jnp.uint32)
-            uout_ref[U_SIDX : U_SIDX + 1, cs] = sidx.astype(jnp.uint32)
-            uout_ref[U_DEPTH : U_DEPTH + 1, cs] = depth.astype(jnp.uint32)
-            uout_ref[U_ALIVE : U_ALIVE + 1, cs] = alive.astype(jnp.uint32)
-            uout_ref[U_MARCH : U_MARCH + 1, cs] = march.astype(jnp.uint32)
-            uout_ref[U_ICX : U_ICX + 1, cs] = icx.astype(jnp.uint32)
-            uout_ref[U_ICZ : U_ICZ + 1, cs] = icz.astype(jnp.uint32)
-            uout_ref[U_CALL : U_CALL + 1, cs] = cidx.astype(jnp.uint32)
-        fout_ref[R_ACC : R_ACC + 3 * m_slots, :] = acc_ref[:, :]
-        rf = f_rows(m_slots)
-        tail0 = R_ACC + 3 * m_slots
-        if tail0 < rf:
-            fout_ref[tail0:rf, :] = fin_ref[tail0:rf, :]
-        uout_ref[U_FNC : U_FNC + 3, :] = fresh_ref[:, :]
-        return
-
-    if "state2" in ablate:
-        # register-pressure probe: carry 8 EXTRA live rows through the loop
-        # (each row = TILE/1024 vregs).  If the kernel's unprobed majority
-        # cost is state-row vreg pressure / spills, this shows a clear
-        # slope; if it's flat, state-packing refactors are pointless.
-        extra = tuple(
-            fin_ref[i : i + 1, :] * np.float32(1e-30) for i in range(8))
-
-        def body2(_, c):
-            st, ex = c
-            st2 = step(st)
-            # mutate per iteration so the rows can't be hoisted as loop
-            # invariants; 1e-30-scaled so values stay tiny and unused
-            ex2 = tuple(e + st2[11] * np.float32(1e-30) for e in ex)
-            return (st2, ex2)
-
-        st, extra = jax.lax.fori_loop(0, k_steps, body2, (st, extra))
-        # sink the probe rows so they stay live (~1e-28 acc perturbation —
-        # the state2 variant is a timing probe, not a production image path;
-        # a *0.0 sink would risk algebraic simplification killing the rows)
-        acc_ref[0:1, :] = acc_ref[0:1, :] + sum(extra) * np.float32(1e-30)
-    elif unroll:
-        # static unroll: a multi-iteration basic block lets Mosaic schedule
-        # ACROSS iteration boundaries (iteration i+1's fetch gather depends
-        # only on the march advance early in iteration i's chain, so it can
-        # overlap i's resolve/shade tail — a fori_loop back edge forbids
-        # that).  unroll=True unrolls all k_steps (measured 47% slower at
-        # K=10: program-size pressure); an int N > 1 unrolls bodies of N
-        # inside a fori of k_steps//N (partial unroll).
-        if unroll is True or unroll >= k_steps:
-            for _ in range(k_steps):
-                st = step(st)
-        else:
-            n = int(unroll)
-            assert k_steps % n == 0, "k_steps must divide by the unroll factor"
-
-            def bodyn(_, st):
-                for _ in range(n):
-                    st = step(st)
-                return st
-
-            st = jax.lax.fori_loop(0, k_steps // n, bodyn, st)
-    else:
-        def body(_, st):
-            return step(st)
-
-        st = jax.lax.fori_loop(0, k_steps, body, st)
-
-    (ox, oy, oz, dx, dy, dz, fx, fy, tx_, ty_, tz_,
-     t_b, t_end, t_nx, t_nz, bkey, wcx, wcz, cur_x, cur_y, cur_z,
-     seed, mrow, sidx, depth, alive, march, icx, icz, cidx) = st
-    for i, v in enumerate((ox, oy, oz, dx, dy, dz, fx, fy, tx_, ty_, tz_,
-                           t_b, t_end, t_nx, t_nz, bkey, wcx, wcz, cur_x,
-                           cur_y, cur_z)):
-        fout_ref[i : i + 1, :] = v
-    fout_ref[R_ACC : R_ACC + 3 * m_slots, :] = acc_ref[:, :]
-    rf = f_rows(m_slots)
-    tail0 = R_ACC + 3 * m_slots
-    if tail0 < rf:
-        fout_ref[tail0:rf, :] = fin_ref[tail0:rf, :]
-
-    uout_ref[U_SEED : U_SEED + 1, :] = seed
-    uout_ref[U_M : U_M + 1, :] = mrow.astype(jnp.uint32)
-    uout_ref[U_SIDX : U_SIDX + 1, :] = sidx.astype(jnp.uint32)
-    uout_ref[U_DEPTH : U_DEPTH + 1, :] = depth.astype(jnp.uint32)
-    uout_ref[U_ALIVE : U_ALIVE + 1, :] = alive.astype(jnp.uint32)
-    uout_ref[U_MARCH : U_MARCH + 1, :] = march.astype(jnp.uint32)
-    uout_ref[U_ICX : U_ICX + 1, :] = icx.astype(jnp.uint32)
-    uout_ref[U_ICZ : U_ICZ + 1, :] = icz.astype(jnp.uint32)
-    uout_ref[U_CALL : U_CALL + 1, :] = cidx.astype(jnp.uint32)
-    uout_ref[U_FNC : U_FNC + 3, :] = fresh_ref[:, :]
+    _, it = jax.lax.while_loop(lambda c: jnp.max(c[0].alive) > 0, body,
+                               (st0, jnp.int32(0)))
+    iters[pid] = it
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "m_slots", "n_lanes", "p_total", "width", "max_depth", "k_steps",
-        "j_steps", "skip_tmax", "ablate", "interpret", "unroll", "fuse",
-        "groups", "five", "n_slots", "rr",
-    ),
-)
-def grid_megakernel_step(scal, vpr, gscal, gtab, gttab, ctab, atab, fstate,
-                         ustate, ttab=None, passign=None, *, m_slots,
-                         n_lanes, p_total,
-                         width, max_depth, k_steps=K_STEPS, j_steps=J_STEPS,
-                         skip_tmax=False, ablate=(), interpret=False,
-                         unroll=False, fuse=1, groups=GROUPS, five=False,
-                         n_slots=N_SLOTS, rr=None):
-    """``k_steps`` grid-traced wavefront iterations over all lanes."""
-    assert TILE % (128 * groups) == 0, "group width must be 128-aligned"
-    assert groups == 1 or (not unroll and "state2" not in ablate), (
-        "unroll/state2 probes only support groups=1")
-    n_pad = fstate.shape[1]
-    rf = f_rows(m_slots)
-    grid = n_pad // TILE
-    c_stride = -(-(5 if five else 4) * n_slots // 8) * 8
-    cb = ctab.shape[0] // c_stride
-    pad = next((int(a[3:]) for a in ablate
-                if a.startswith("pad") and a[3:].isdigit()), 0)
-    if pad:
-        # padN gather-row-cost probe (see _iterate): append N dead rows per
-        # block; values fetched are unchanged, only the gather row count
-        assert pad % 8 == 0, "pad must keep blocks sublane-aligned"
-        z = jnp.zeros((pad, ctab.shape[1]), ctab.dtype)
-        ctab = jnp.concatenate(
-            [x for b in range(cb)
-             for x in (ctab[b * c_stride : (b + 1) * c_stride], z)], axis=0)
-    ab = atab.shape[0] // 8  # 8-row stride per block: 5 attr values
-    #                          (mat, c0.rgb, attr) + 3 alignment pad rows
-    textured = ttab is not None  # static: pytree structure of the args
-    balanced = passign is not None  # static: balanced pixel assignment
-    kw = dict(
-        m_slots=m_slots, n_lanes=n_lanes, p_total=p_total,
-        width=width, max_depth=max_depth, tmin=np.float32(config.T_MIN),
-        tmax=np.float32(config.MAX_RAY_COLLISION_DISTANCE), k_steps=k_steps,
-        j_steps=j_steps, skip_tmax=skip_tmax, cb=cb, ab=ab,
-        ablate=frozenset(ablate), unroll=unroll, fuse=fuse, groups=groups,
-        five=five, n_slots=n_slots, rr=rr,
-    )
-    if textured or balanced:
-        # optional refs slot in between atab and the state refs (inputs),
-        # and after fresh_ref (scratch), in a fixed order
-        def kernel(scal_r, vpr_r, gscal_r, gtab_r, gttab_r, ctab_r, atab_r,
-                   *rest):
-            rest = list(rest)
-            ttab_r = rest.pop(0) if textured else None
-            passign_r = rest.pop(0) if balanced else None
-            fin_r, uin_r, fout_r, uout_r, acc_r, fresh_r = rest[:6]
-            pnext_r = rest[6] if balanced else None
-            _kernel(scal_r, vpr_r, gscal_r, gtab_r, gttab_r, ctab_r, atab_r,
-                    fin_r, uin_r, fout_r, uout_r, acc_r, fresh_r,
-                    ttab_ref=ttab_r, passign_ref=passign_r,
-                    pnext_ref=pnext_r, **kw)
-    else:
-        kernel = functools.partial(_kernel, **kw)
-    in_specs = [
-        pl.BlockSpec(memory_space=pltpu.SMEM),  # scal (1, 8) i32
-        pl.BlockSpec(memory_space=pltpu.SMEM),  # vpr (1, 24) f32
-        pl.BlockSpec(memory_space=pltpu.SMEM),  # gscal (1, 16) f32
-        pl.BlockSpec(memory_space=pltpu.SMEM),  # gtab (Gp, 16) f32
-        pl.BlockSpec(memory_space=pltpu.SMEM),  # gttab (Tp, 16) f32
-        pl.BlockSpec(ctab.shape, lambda g: (0, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec(atab.shape, lambda g: (0, 0), memory_space=pltpu.VMEM),
-    ]
-    args = [scal, vpr, gscal, gtab, gttab, ctab, atab]
-    if textured:
-        in_specs.append(
-            pl.BlockSpec(ttab.shape, lambda g: (0, 0), memory_space=pltpu.VMEM))
-        args.append(ttab)
-    if balanced:
-        in_specs.append(
-            pl.BlockSpec((m_slots, TILE), lambda g: (0, g),
-                         memory_space=pltpu.VMEM))
-        args.append(passign)
-    st0 = len(args)  # index of fstate (aliased to output 0)
-    in_specs += [
-        pl.BlockSpec((rf, TILE), lambda g: (0, g), memory_space=pltpu.VMEM),
-        pl.BlockSpec((U_ROWS, TILE), lambda g: (0, g), memory_space=pltpu.VMEM),
-    ]
-    args += [fstate, ustate]
-    return pl.pallas_call(
+def render_lanes(grid, atab, scal, vpr, acc, *, n_lanes, m_slots, p_total,
+                 width, max_depth, rr, block=BLOCK, interpret=False):
+    """Run the band's ``n_lanes`` lanes to completion.
+
+    ``acc``: f32 [3, p_total] accumulator (flushed pixels add their colour
+    sums in place).  Returns (acc, iters) with the loop iteration count of
+    every program.  ``interpret`` runs the kernel in the Pallas interpreter
+    with plain division (tests; the inline-PTX division exists only
+    compiled) and ``block`` spare accumulator columns for padding lanes.
+    """
+    block = block_lanes(n_lanes, block)
+    n_blocks = -(-n_lanes // block)
+    spare = block if interpret else 0
+    if spare:
+        acc = jnp.pad(acc, ((0, 0), (0, spare)))
+    kernel = functools.partial(
+        _kernel, block=block, n_lanes=n_lanes, m_slots=m_slots,
+        p_total=p_total, width=width, max_depth=max_depth, rr=rr,
+        div=operator.truediv if interpret else ieee_div, spare=spare)
+    acc, iters = pl.pallas_call(
         kernel,
-        grid=(grid,),
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((rf, TILE), lambda g: (0, g), memory_space=pltpu.VMEM),
-            pl.BlockSpec((U_ROWS, TILE), lambda g: (0, g), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((rf, n_pad), jnp.float32),
-            jax.ShapeDtypeStruct((U_ROWS, n_pad), jnp.uint32),
-        ],
-        input_output_aliases={st0: 0, st0 + 1: 1},  # buffer reuse only —
-        # every output row is still written (Mosaic does not preserve
-        # unwritten rows of aliased outputs)
-        scratch_shapes=(
-            [pltpu.VMEM((3 * m_slots, TILE), jnp.float32),
-             pltpu.VMEM((3, TILE), jnp.uint32)]
-            + ([pltpu.VMEM((1, TILE), jnp.int32)] if balanced else [])),
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=100 * 2**20),
+        grid=(n_blocks,),
+        out_shape=(jax.ShapeDtypeStruct(acc.shape, jnp.float32),
+                   jax.ShapeDtypeStruct((n_blocks,), jnp.int32)),
+        input_output_aliases={8: 0},
+        compiler_params=plt.CompilerParams(num_warps=block // 32,
+                                           num_stages=1),
+        backend="triton",
         interpret=interpret,
-    )(*args)
+        name="grid_wavefront",
+    )(scal, vpr, grid.gscal, grid.gtab, grid.cellf, grid.cellid,
+      grid.cellcnt, atab, acc)
+    return (acc[:, :p_total] if spare else acc), iters

@@ -2,9 +2,9 @@
 
 Replaces the reference's hardware acceleration-structure traversal +
 intersection shader (/root/reference/shaders/shader.rint:22-60 and the
-BLAS/TLAS machinery of /root/reference/src/vulkan.h:395-554): on TPU there is
-no RT core, so "traceRaysKHR" becomes a dense ray-vs-all-spheres test with a
-min-reduction — which is exactly what the VPU/MXU are built for.
+BLAS/TLAS machinery of the reference's src/vulkan.h:395-554) for scenes
+without a grid (models/grid.py): a dense ray-vs-all-spheres test with a
+min-reduction.
 
 Math matches calculateIntersections (shader.rint:44-60): half-b quadratic,
 report t1 if in [tMin, tMax] else t2 (shader.rint:32-39); the hardware's
@@ -16,10 +16,10 @@ Two algebraic forms are provided:
   oracle/GLSL order of operations.  Materializes [N, S, 3]; used for tests
   and small N.
 - ``intersect_matmul``: expanded form where the two ray-sphere contractions
-  ``c . d`` and ``c . o`` are [N,3] @ [3,S] matmuls routed to the MXU, and the
+  ``c . d`` and ``c . o`` are [N,3] @ [3,S] matrix products, and the
   per-sphere constant ``|c|^2 - r^2`` is precomputed in f64 on the host (more
   accurate than the reference's f32 ``dot(oc,oc) - r*r``).  This is the
-  production path: per-pair work off the VPU and onto the MXU where possible.
+  brute-force production path.
 """
 
 from __future__ import annotations
@@ -57,16 +57,16 @@ def intersect_bruteforce(o, d, centers, radii, valid, tmin, tmax):
 
 
 def intersect_matmul(o, d, centers_t, radii_sq_c, valid, tmin, tmax):
-    """MXU form. centers_t: [3,S] (transposed); radii_sq_c: [S] = |c|^2 - r^2.
+    """Matrix-product form. centers_t: [3,S] (transposed); radii_sq_c: [S] = |c|^2 - r^2.
 
     b = o.d - c.d ; c_term = |o|^2 - 2 o.c + (|c|^2 - r^2); a = d.d.
-    The two [N,3]@[3,S] contractions hit the MXU; everything else is
-    elementwise on the VPU and fuses.
+    The two [N,3]@[3,S] contractions are matrix products; everything
+    else is elementwise and fuses.
     """
     od = jnp.sum(o * d, axis=1, keepdims=True)  # [N,1]
     oo = jnp.sum(o * o, axis=1, keepdims=True)  # [N,1]
     a = jnp.sum(d * d, axis=1, keepdims=True)  # [N,1]
-    # precision=HIGHEST: the default (bf16-passes on MXU) loses ~2^-13 relative
+    # precision=HIGHEST: the default (TF32 on the GPU) loses ~2^-11 relative
     # on the big ground-sphere terms, which puts bounce origins ~0.01 inside
     # the sphere and traps paths in self-intersection loops.
     cd = jnp.dot(d, centers_t, preferred_element_type=jnp.float32,

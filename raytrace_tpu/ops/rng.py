@@ -8,11 +8,11 @@ deliberately NOT uniform on the sphere; reproduced faithfully).
 
 All functions are elementwise over uint32 arrays and work identically on numpy
 and jax.numpy inputs (integer arithmetic wraps mod 2^32 in both), so the CPU
-oracle and the TPU wavefront kernel share one RNG implementation and produce
+oracle and the device wavefront share one RNG implementation and produce
 bit-identical draw streams.
 
 A per-ray LCG seed is *carried state* in the wavefront loop, exactly like the
-``inout uint seed`` payload field in GLSL — this is what lets TPU output match
+``inout uint seed`` payload field in GLSL — this is what lets device output match
 the Vulkan renderer near-bitwise rather than only statistically.
 """
 
@@ -53,8 +53,7 @@ def lcg_next(seed):
 def random_float(seed):
     """randomFloat (random.glsl:20-22). Returns (new_seed, f32 in [0,1)).
 
-    The u32->f32 cast goes through i32 (exact: the mask keeps 24 bits) —
-    Mosaic has no direct uint32->float32 conversion."""
+    The u32->f32 cast goes through i32 (exact: the mask keeps 24 bits)."""
     seed = lcg_next(seed)
     masked = seed & _U(0x00FFFFFF)
     if isinstance(masked, (np.ndarray, np.generic)):
@@ -63,7 +62,8 @@ def random_float(seed):
         import jax.numpy as jnp
 
         f = masked.astype(jnp.int32).astype(jnp.float32)
-    return seed, f / np.float32(0x01000000)
+    # * 2^-24 is bit-identical to / 2^24 and needs no division unit
+    return seed, f * np.float32(2.0 ** -24)
 
 
 def random_in_interval(seed, lo, hi):
@@ -80,16 +80,18 @@ def random_vector3(seed, lo, hi):
     return seed, x, y, z
 
 
-def random_unit_vector(seed):
+def random_unit_vector(seed, div=None):
     """randomUnitVector (random.glsl:32-34): normalize(uniform in [-1,1]^3).
 
     Faithful to the reference's corner-biased distribution (SURVEY.md C13).
+    ``div(a, b)`` replaces ``a / b`` (see ops/wavefront.py).
     Returns (new_seed, x, y, z).
     """
     seed, x, y, z = random_vector3(seed, -1.0, 1.0)
     # GLSL normalize: v / length(v); length 0 -> inf/nan propagates (never
     # observed in practice: P(all three draws exactly 0) ~ 2^-72).
-    inv = np.float32(1.0) / _sqrt(x * x + y * y + z * z)
+    n = _sqrt(x * x + y * y + z * z)
+    inv = np.float32(1.0) / n if div is None else div(np.float32(1.0), n)
     return seed, x * inv, y * inv, z * inv
 
 

@@ -1,68 +1,67 @@
-"""Persistent-wavefront path-tracing core — the TPU-native `traceRaysKHR`.
+"""Persistent-wavefront path-tracing core — the device `traceRaysKHR`.
 
 This module replaces the entire Vulkan RT pipeline of the reference
 (/root/reference/shaders/shader.rgen + rint + rchit + rmiss dispatched by
 ``traceRaysKHR`` at /root/reference/src/vulkan.h:994) with ONE jitted loop.
 
-Design ("persistent wavefront with M-pixel lanes"): each vector lane owns M
-strided pixels and renders their samples back-to-back.  Each loop iteration
-traces exactly one ray segment per lane (intersect -> shade -> scatter).
-When a lane's path terminates (sky miss, metal absorb, or depth 50), its
-contribution is added to the lane's current pixel slot and the lane
-*immediately regenerates* the pixel's next sample — or advances to its next
-pixel — so array shapes stay static (XLA requirement) and lane occupancy
-stays ~100% (M > 1 averages per-pixel path-length variance across the lane's
-pixels; without it, sky-pixel lanes idle behind glass-pixel lanes).  Total
-iterations ~= spp * M * mean_path_length + a small tail.
+Design ("persistent wavefront with M-pixel lanes"): each lane owns M
+strided pixels (slot m of lane k is band pixel m * n_lanes + k) and renders
+their samples back-to-back.  Each iteration traces one ray segment per lane
+(closest hit -> shade -> scatter).  When a lane's path terminates (sky miss,
+metal absorb, depth 50) its contribution joins the running sum of the
+lane's pixel and the lane immediately regenerates the pixel's next sample,
+or flushes the sum and moves to its next pixel — so shapes stay static and
+lanes stay busy.  The step itself lives in ops/wavefront.py and is shared by
+every backend; the backends differ only in the closest-hit search:
 
-Backends: ``mega`` (production on TPU — the whole iteration in one Pallas
-call, ops/megakernel.py), ``pallas`` (fused intersect+attrs kernel with XLA
-shading), ``matmul`` (pure XLA, MXU contractions; production on CPU), and
-``bruteforce`` (pure XLA in the oracle's exact fp op order — the parity
-reference for tests).  All four implement identical semantics; bruteforce
-and mega are bit-identical on the same platform.
+  ``grid``        uniform-grid DDA (models/grid.py) as one Pallas-Triton
+                  kernel: lane state stays in registers for the whole band
+                  (ops/gridkernel.py) — the GPU hot path;
+  ``matmul``      brute force over all spheres with the two ray x sphere
+                  contractions as matrix products (ops/intersect.py);
+  ``bruteforce``  brute force in the oracle's exact fp op order — the
+                  parity reference for tests.
 
-This structure also preserves the reference's RNG semantics exactly: the GLSL
-code runs all samples of a pixel sequentially on one thread with a single
-carried LCG seed (shader.rgen:40,56-60); here each lane carries that same seed
-through bounce -> termination -> regeneration, so in ``backend='bruteforce'``
-mode the draw stream is bit-identical to the oracle/GLSL and images validate
-near-bitwise (SURVEY.md §7 hard-part (b)).
+The RNG semantics are the reference's: GLSL runs all samples of a pixel
+sequentially on one thread with one carried LCG seed (shader.rgen:40,56-60);
+here each lane carries that seed through bounce -> termination ->
+regeneration, so ``bruteforce`` reproduces the oracle/GLSL draw stream and
+images validate near-bitwise (SURVEY.md §7 hard-part (b)).
 
 Seed/uv coordinate conventions (multi-GPU parity): the reference seeds from
 *launch-local* coordinates but computes uv from ``offset + launch``
 (shader.rgen:40,45).  ``render_band`` therefore takes both a uv row origin
 (``y0``, the band's global row) and a seed row origin (``seed_y0``): internal
 memory-chunking passes ``seed_y0 = y0`` (identical to a single-GPU reference
-render), while the multi-chip layer passes ``seed_y0 = 0`` to mirror the
+render), while the multi-device layer may pass ``seed_y0 = 0`` to mirror the
 reference's per-GPU banding.
 """
 
 from __future__ import annotations
 
-
+import operator
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..config import MAX_RAY_COLLISION_DISTANCE, MAX_DEPTH, T_MIN
+from ..config import MAX_DEPTH, MAX_RAY_COLLISION_DISTANCE, T_MIN
 from ..models.camera import Camera, calculate_viewport
 from ..models.scene import SceneArrays
-from . import materials
-from . import rng as rngops
+from . import wavefront as wf
 from .intersect import intersect_bruteforce, intersect_matmul, sphere_constants
 
-_U32 = jnp.uint32
-_SKY = np.array([0.7, 0.8, 1.0], np.float32)  # shader.rmiss:15
+BACKENDS = ("grid", "matmul", "bruteforce")
 
 
 class DeviceScene(NamedTuple):
-    """Scene data prepared for the device (all jnp-compatible arrays).
+    """Scene data prepared for the device (a pytree of arrays).
 
     ``centers_t``/``kc`` are the matmul-path precomputes (intersect.py);
-    ``valid`` masks the MAX_SPHERE_AMOUNT padding (scene.h:24-28).
+    ``valid`` masks the MAX_SPHERE_AMOUNT padding (scene.h:24-28);
+    ``atab`` holds the per-sphere shading attributes every backend reads
+    (wavefront.attr_table).
     """
 
     centers: jnp.ndarray  # [S,3] f32
@@ -70,16 +69,9 @@ class DeviceScene(NamedTuple):
     radii: jnp.ndarray  # [S] f32
     kc: jnp.ndarray  # [S] f32 = |c|^2 - r^2 (f64 precompute)
     valid: jnp.ndarray  # [S] bool
-    material: jnp.ndarray  # [S] i32
-    texture: jnp.ndarray  # [S] i32
-    color0: jnp.ndarray  # [S,3] f32
-    color1: jnp.ndarray  # [S,3] f32
-    attr: jnp.ndarray  # [S] f32
-    table: jnp.ndarray  # [S,24] packed table for the Pallas kernel
-    grid: object = None  # models.grid.GridTables when the scene fits the
-    #                      uniform-grid acceleration structure, else None
-    paged: object = None  # models.paged_grid.PagedGridTables for dense/large
-    #                       scenes past the flat grid's addressing reach
+    atab: jnp.ndarray  # [S, wavefront.A_COLS] f32
+    grid: object = None  # models.grid.GridTables, or None when the scene
+    #                      does not fit the uniform grid
 
 
 class ViewportArrays(NamedTuple):
@@ -96,66 +88,26 @@ class ViewportArrays(NamedTuple):
     size: jnp.ndarray  # [2] f32 (width, height) — shader.rgen:42
 
 
-def prepare_scene(scene: SceneArrays, grid_pitch: float = None) -> DeviceScene:
-    """Host-side scene prep: SoA -> device layout with matmul precomputes.
+def prepare_scene(scene: SceneArrays, grid_pitch=None) -> DeviceScene:
+    """Host-side scene prep: SoA -> device layout (host numpy tables).
 
-    ``grid_pitch`` (or env RAYTRACE_GRID_PITCH): flat-grid cell size in
-    world units; see models/grid.py build_grid.
+    ``grid_pitch``: grid cell size in world units, or None for the
+    choice of models/grid.py build_grid.
     """
-    import os
-
     from ..models.grid import build_grid
-    from ..models.paged_grid import build_paged_grid
-    from .pallas_intersect import sphere_table
 
-    if grid_pitch is None:
-        grid_pitch = os.environ.get("RAYTRACE_GRID_PITCH", "1.0")
     centers = np.asarray(scene.centers, np.float32)
     radii = np.asarray(scene.radii, np.float32)
-    n = int(scene.n_spheres)
-    s = centers.shape[0]
-    valid = np.arange(s) < n
-    table = sphere_table(scene)
-    if grid_pitch == "auto":
-        # coarse-first: pitch 2 halves march steps when the scene fits its
-        # slot budget (uniform heights, <= 8 four-value slots) and never
-        # loses capability — anything that doesn't build falls back to the
-        # unit lattice, then to paged/brute force as before
-        grid = build_grid(scene, table, pitch=2.0)
-        if grid is None or grid.has_cy is not None:
-            grid = build_grid(scene, table, pitch=1.0)
-    else:
-        grid = build_grid(scene, table, pitch=float(grid_pitch))
-    paged = None if grid is not None else build_paged_grid(scene, table)
+    valid = np.arange(centers.shape[0]) < int(scene.n_spheres)
     return DeviceScene(
         centers=centers,
         centers_t=np.ascontiguousarray(centers.T),
         radii=radii,
         kc=sphere_constants(centers, radii),
         valid=valid,
-        material=np.asarray(scene.material, np.int32),
-        texture=np.asarray(scene.texture, np.int32),
-        color0=np.asarray(scene.color0, np.float32),
-        color1=np.asarray(scene.color1, np.float32),
-        attr=np.asarray(scene.attr, np.float32),
-        table=table,
-        grid=grid,
-        paged=paged,
+        atab=wf.attr_table(scene),
+        grid=build_grid(scene, pitch=grid_pitch),
     )
-
-
-def tmax_never_binds(scene: SceneArrays, camera: Camera) -> bool:
-    """True when no intersection in this scene can reach the ray tMax
-    (shader.rgen:26): every hit point and every ray origin lie inside the
-    ball of radius R = max(|center|+r, |camera|), so t <= 2R.  Lets the
-    megakernel drop its upper range checks (skip_tmax) with zero semantic
-    change."""
-    centers = np.asarray(scene.centers, np.float64)
-    radii = np.asarray(scene.radii, np.float64)
-    n = int(scene.n_spheres)
-    reach = float((np.linalg.norm(centers[:n], axis=1) + radii[:n]).max()) if n else 0.0
-    cam = float(np.linalg.norm(np.asarray(camera.look_from, np.float64)))
-    return 2.0 * max(reach, cam) < 0.99 * MAX_RAY_COLLISION_DISTANCE
 
 
 def viewport_arrays(camera: Camera, width: int, height: int) -> ViewportArrays:
@@ -173,78 +125,54 @@ def viewport_arrays(camera: Camera, width: int, height: int) -> ViewportArrays:
     )
 
 
-def _normalize3(v):
-    """GLSL normalize with explicit x,y,z sum order (bit-parity with oracle)."""
-    n2 = v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2]
-    return v / jnp.sqrt(n2)[..., None]
+def lane_count(p_total: int, pixels_per_lane: int):
+    """(M, lanes) for a band of ``p_total`` pixels: M strided pixels per
+    lane, capped at the pixel count."""
+    m_slots = max(1, min(pixels_per_lane, p_total))
+    return m_slots, -(-p_total // m_slots)
 
 
-def _camera_rays(seed, fx, fy, vp: ViewportArrays):
-    """Vectorized getCameraRay (shader.rgen:107-115) incl. the uv jitter draws
-    of shader.rgen:57.  ``fx``/``fy`` are the pre-offset pixel coords (f32).
-
-    Draw order per sample: jitter-x, jitter-y, aperture-r1, aperture-r2 —
-    exactly 4 LCG draws, matching the reference stream.
-    """
-    seed, jx = rngops.random_float(seed)
-    seed, jy = rngops.random_float(seed)
-    u = (fx + jx) / vp.size[0]
-    v = (fy + jy) / vp.size[1]
-    seed, r1 = rngops.random_in_interval(seed, -1.0, 1.0)
-    seed, r2 = rngops.random_in_interval(seed, -1.0, 1.0)
-    # normalize(vec2(r1,r2)) * aperture/2 — aperture 0 in the reference (Q4)
-    inv_l = jnp.float32(1.0) / jnp.sqrt(r1 * r1 + r2 * r2)
-    ap = vp.aperture * jnp.float32(0.5)
-    rx = ap * (r1 * inv_l)
-    ry = ap * (r2 * inv_l)
-    offset3 = vp.cam_right[None, :] * rx[:, None] + vp.cam_up[None, :] * ry[:, None]
-    frm = vp.look_from[None, :] + offset3
-    to = (
-        vp.upper_left[None, :]
-        + vp.horizontal[None, :] * u[:, None]
-        - vp.vertical[None, :] * v[:, None]
-    )
-    d = _normalize3(to - frm)
-    return seed, frm, d
-
-
-def _intersect(backend: str, scene: DeviceScene, o, d):
+def _closest_hit(backend, scene: DeviceScene, st: wf.Lanes):
+    """Brute-force closest hit of every lane: (t, idx, hit, done)."""
+    o = jnp.stack([st.ox, st.oy, st.oz], axis=1)
+    d = jnp.stack([st.dx, st.dy, st.dz], axis=1)
     tmin = jnp.float32(T_MIN)
     tmax = jnp.float32(MAX_RAY_COLLISION_DISTANCE)
     if backend == "bruteforce":
-        return intersect_bruteforce(o, d, scene.centers, scene.radii, scene.valid, tmin, tmax)
-    if backend == "matmul":
-        return intersect_matmul(o, d, scene.centers_t, scene.kc, scene.valid, tmin, tmax)
-    raise ValueError(f"unknown intersect backend: {backend!r}")
+        t, idx, hit = intersect_bruteforce(o, d, scene.centers, scene.radii,
+                                           scene.valid, tmin, tmax)
+    else:
+        t, idx, hit = intersect_matmul(o, d, scene.centers_t, scene.kc,
+                                       scene.valid, tmin, tmax)
+    return t, idx, hit, st.alive != 0
 
 
-def _shade_inputs(backend: str, scene: DeviceScene, o, d):
-    """Closest hit + the hit sphere's attributes.
+def _render_xla(scene: DeviceScene, scal, vpr, acc, *, backend, n_lanes,
+                m_slots, p_total, width, max_depth, rr):
+    """The brute-force wavefront as an XLA while loop over all lanes of the
+    band."""
+    lane = jnp.arange(n_lanes, dtype=jnp.int32)
+    alive0 = jnp.broadcast_to(scal[wf.S_SPP] > 0, (n_lanes,))
+    st0 = wf.init_lanes(lane, alive0, scal, vpr, width)
 
-    Returns (t [N], hit [N] bool, center [N,3], mat [N] i32, tex [N] i32,
-    c0 [N,3], c1 [N,3], attr [N]).  The Pallas backend gets everything from
-    one fused kernel (attribute fetch is an in-kernel MXU contraction); the
-    XLA backends gather from the SoA tables.
-    """
-    if backend == "pallas":
-        from . import pallas_intersect as pk
+    def cond(c):
+        return jnp.any(c[0].alive != 0)
 
-        t, hit, a = pk.intersect_shade_pallas(o, d, scene.table)
-        center = a[:, pk.A_CX : pk.A_CZ + 1]
-        mat = a[:, pk.A_MAT].astype(jnp.int32)
-        tex = a[:, pk.A_TEX].astype(jnp.int32)
-        c0 = a[:, pk.A_C0 : pk.A_C0 + 3]
-        c1 = a[:, pk.A_C1 : pk.A_C1 + 3]
-        attr = a[:, pk.A_ATTR]
-        return t, hit, center, mat, tex, c0, c1, attr
-    t, idx, hit = _intersect(backend, scene, o, d)
-    center = jnp.take(scene.centers, idx, axis=0)
-    mat = jnp.take(scene.material, idx, axis=0)
-    tex = jnp.take(scene.texture, idx, axis=0)
-    c0 = jnp.take(scene.color0, idx, axis=0)
-    c1 = jnp.take(scene.color1, idx, axis=0)
-    attr = jnp.take(scene.attr, idx, axis=0)
-    return t, hit, center, mat, tex, c0, c1, attr
+    def body(c):
+        st, acc, it = c
+        t, idx, hit, done = _closest_hit(backend, scene, st)
+        st, flush, pix, cur = wf.step(
+            st, lane, t, idx, hit, done, scal=scal, vpr=vpr, atab=scene.atab,
+            m_slots=m_slots, n_lanes=n_lanes, p_total=p_total, width=width,
+            max_depth=max_depth, rr=rr, div=operator.truediv)
+        # each pixel belongs to one lane and is flushed once: a scatter to
+        # distinct indices, deterministic on every device
+        acc = acc.at[:, jnp.where(flush, pix, p_total)].add(
+            jnp.stack(cur), mode="drop")
+        return st, acc, it + 1
+
+    _, acc, iters = jax.lax.while_loop(cond, body, (st0, acc, jnp.int32(0)))
+    return acc, iters
 
 
 def render_band_core(
@@ -262,29 +190,13 @@ def render_band_core(
     max_depth: int = MAX_DEPTH,
     backend: str = "matmul",
     pixels_per_lane: int = 1,
-    skip_tmax: bool = False,
     return_iters: bool = False,
-    ablate: tuple = (),  # grid-kernel perf-ablation probes (static; debug)
-    grid_steps=None,  # (j_steps, k_steps) grid-kernel override (static) —
-    # MUST be an explicit arg: gridkernel.J_STEPS/K_STEPS module globals are
-    # read at trace time, so in-process sweeps that mutate them silently
-    # reuse the first compiled program (same jit cache key)
-    n_calls=None,  # grid backend: progressive calls merged IN-KERNEL
-    # (numbers number..number+n_calls-1, spp each except the last).  Dynamic
-    # i32 — group size changes don't recompile.  Bit-identical to the same
-    # calls issued through the host loop (gridkernel call-merge docstring).
-    spp_last=None,  # samples of the merged dispatch's last call (<= spp)
     rr=None,  # fast mode (static): (d0, d1, pmin) Russian-roulette params —
     # unbiased path termination past depth d0 with survival p = clamp(max
     # throughput component, pmin, 1) (halved past d1), throughput /= p on
     # survival.  None = exact reference-stream mode (the bit-parity chain).
-    passign=None,  # grid backend: balanced pixel->lane assignment table,
-    # i32 [m_slots, n_pad] of band-local pixel ids (sentinel >= p_total on
-    # padding entries).  Each pixel is still rendered whole, on one lane,
-    # samples in order — so the IMAGE IS BIT-IDENTICAL to the default
-    # strided map for any table (same invariance argument as M/chunking);
-    # only the straggler wall moves (runtime/balance.py builds tables from
-    # measured per-pixel costs).  Dynamic arg (tables don't recompile).
+    interpret: bool = False,  # grid: run the Pallas kernel in the
+    # interpreter (tests on a machine without the card)
 ):
     """Render one row band; returns the accumulated color sum [band_h, W, 3].
 
@@ -294,561 +206,38 @@ def render_band_core(
     (shader.rgen:70-89) — restructured as a persistent-wavefront loop (module
     docstring).  Divide by spp and sqrt for the display image (gamma 2).
 
-    ``pixels_per_lane`` (M): each vector lane renders M strided pixels in
-    sequence (pixel of lane k, slot m = m*n_lanes + k).  M=1 pins one pixel
-    per lane; larger M averages per-pixel path-length variance across a
-    lane's pixels, fixing the occupancy collapse where lanes that drew short
-    paths (sky pixels, ~3 segments/sample) idle while glass pixels grind
-    through ~20.  Per-pixel RNG streams and results are IDENTICAL for any M
+    ``pixels_per_lane`` (M): each lane renders M strided pixels in
+    sequence.  Per-pixel RNG streams and results are IDENTICAL for any M
     (lane scheduling never reorders a pixel's sequential samples).
+    ``return_iters`` also returns the wavefront iteration count (for
+    ``grid``: the longest block's).
     """
-    if (n_calls is not None or spp_last is not None) and backend != "grid":
-        raise ValueError("in-kernel call merging is a grid-backend feature")
-    if passign is not None and backend != "grid":
-        raise ValueError("balanced pixel assignment is a grid-backend "
-                         "feature")
-    if backend in ("mega", "grid"):
-        return _render_band_mega(
-            scene, vp, band_h=band_h, width=width, y0=y0, seed_y0=seed_y0,
-            offset_x=offset_x, spp=spp, number=number, accum_init=accum_init,
-            max_depth=max_depth, pixels_per_lane=pixels_per_lane,
-            skip_tmax=skip_tmax, return_iters=return_iters, backend=backend,
-            ablate=ablate, grid_steps=grid_steps, n_calls=n_calls,
-            spp_last=spp_last, rr=rr, passign=passign)
-    if backend == "paged":
-        return _render_band_paged(
-            scene, vp, band_h=band_h, width=width, y0=y0, seed_y0=seed_y0,
-            offset_x=offset_x, spp=spp, number=number, accum_init=accum_init,
-            max_depth=max_depth, pixels_per_lane=pixels_per_lane,
-            skip_tmax=skip_tmax, return_iters=return_iters,
-            # r5 fix: ablate used to be silently DROPPED on this branch,
-            # which made ablate-driven paged A/Bs (and the distinctwalk
-            # bit-identity pin) vacuous through this entry point
-            ablate=ablate,
-            # the rebucket interval rides grid_steps[1] and the sort-key
-            # mode grid_steps[3] (STATIC args — an env/module knob read at
-            # trace time would not key the jit cache and in-process sweeps
-            # would silently reuse the first program; see CLAUDE.md)
-            k_steps=None if grid_steps is None else grid_steps[1],
-            morton=True if grid_steps is None else bool(grid_steps[3]),
-            # carried winner attrs (pagedkernel.CARRY) ride grid_steps[2]
-            carry=True if grid_steps is None else bool(grid_steps[2]),
-            rr=rr)
-
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend: {backend!r} "
+                         f"(expected one of {'|'.join(BACKENDS)})")
+    if backend == "grid" and scene.grid is None:
+        raise ValueError(f"backend {backend!r} needs a scene that builds a "
+                         "grid (models/grid.py)")
+    scene = jax.tree.map(jnp.asarray, scene)  # host tables when unjitted
     p_total = band_h * width
-    m_slots = max(1, min(pixels_per_lane, p_total))
-    n = -(-p_total // m_slots)  # lanes
-    lane = jnp.arange(n, dtype=jnp.int32)
-    spp = jnp.int32(spp)
-    sky = jnp.asarray(_SKY)
-
-    def pixel_init(pix, number_):
-        """Per-pixel uv coords + fresh TEA seed (shader.rgen:40,45)."""
-        px = pix % width
-        py_local = pix // width
-        fx = (offset_x + px).astype(jnp.float32)
-        fy = (y0 + py_local).astype(jnp.float32)
-        py_seed = (seed_y0 + py_local).astype(jnp.uint32)
-        seed0 = rngops.tea_hash(
-            rngops.tea_hash(px.astype(jnp.uint32), py_seed), jnp.uint32(number_)
-        )
-        return fx, fy, seed0
-
-    fx0, fy0, seed0 = pixel_init(lane, number)  # slot m=0: pixel index = lane
-    seed, o, d = _camera_rays(seed0, fx0, fy0, vp)
-
+    m_slots, n_lanes = lane_count(p_total, pixels_per_lane)
+    scal = wf.call_scalars(spp, number, y0, seed_y0, offset_x)
+    vpr = wf.viewport_vector(vp)
     if accum_init is None:
-        acc0 = jnp.zeros((n, m_slots, 3), jnp.float32)
+        acc = jnp.zeros((3, p_total), jnp.float32)
     else:
-        flat = accum_init.reshape(p_total, 3)
-        pad = n * m_slots - p_total
-        if pad:
-            flat = jnp.concatenate([flat, jnp.zeros((pad, 3), jnp.float32)], axis=0)
-        acc0 = flat.reshape(m_slots, n, 3).transpose(1, 0, 2)
-
-    state = dict(
-        seed=seed,
-        m=jnp.zeros((n,), jnp.int32),  # current pixel slot
-        sidx=jnp.ones((n,), jnp.int32),  # samples issued for current pixel
-        depth=jnp.zeros((n,), jnp.int32),
-        o=o,
-        d=d,
-        fx=fx0,
-        fy=fy0,
-        thr=jnp.ones((n, 3), jnp.float32),
-        acc=acc0,
-        alive=jnp.broadcast_to(spp > 0, (n,)),
-        iters=jnp.int32(0),
-    )
-
-    def cond(st):
-        return jnp.any(st["alive"])
-
-    def body(st):
-        seed, o, d, alive = st["seed"], st["o"], st["d"], st["alive"]
-        t, hit, center, mat, tex, c0, c1, attr = _shade_inputs(backend, scene, o, d)
-
-        point = o + t[:, None] * d  # shader.rint:33
-        # shader.rchit:41-43
-        outward = _normalize3(point - center)
-        ddn = outward[:, 0] * d[:, 0] + outward[:, 1] * d[:, 1] + outward[:, 2] * d[:, 2]
-        front = ddn < 0.0
-        normal = jnp.where(front[:, None], outward, -outward)
-
-        att = materials.texture_color(point, tex, c0, c1)
-        seed_h, sd, does_scatter = materials.scatter(seed, d, normal, front, mat, attr)
-
-        scatters = hit & does_scatter
-        deep = (st["depth"] + 1) >= max_depth
-        cont = alive & scatters & ~deep
-        nthr = st["thr"] * att  # new throughput after this bounce
-        if rr is not None:
-            # Russian-roulette fast mode — same structure (and f32 op order)
-            # as gridkernel._iterate; rr=None keeps the bit-parity chain
-            d0, d1, pmin = rr
-            dnext = st["depth"] + 1
-            p = jnp.minimum(jnp.float32(1.0), jnp.maximum(
-                jnp.float32(pmin), jnp.max(nthr, axis=1)))
-            if d1:
-                p = jnp.where(dnext >= d1, p * jnp.float32(0.5), p)
-            considered = cont & (dnext >= d0)
-            seed_pre = jnp.where(hit, seed_h, seed)
-            seed_rr, u_rr = rngops.random_float(seed_pre)
-            killed = considered & (u_rr >= p)
-            cont = cont & ~killed
-            nthr = jnp.where(considered[:, None], nthr / p[:, None], nthr)
-        term = alive & ~cont
-
-        # lightSourceColor: sky on miss; attenuation on absorb (rgen:82-86);
-        # 0 when the depth cap kills a still-scattering path (rgen:74,89).
-        light = jnp.where(
-            hit[:, None],
-            jnp.where(does_scatter[:, None], jnp.zeros((1, 3), jnp.float32), att),
-            sky[None, :],
-        )
-        # accumulate into the lane's CURRENT pixel slot (one-hot over M — a
-        # handful of flops; never a scatter)
-        contrib = jnp.where(term[:, None], st["thr"] * light, 0.0)
-        oh = (
-            jax.lax.broadcasted_iota(jnp.int32, (n, m_slots), 1) == st["m"][:, None]
-        ).astype(jnp.float32)
-        acc = st["acc"] + oh[:, :, None] * contrib[:, None, :]
-
-        # Seed: hits consumed material draws; misses consumed none.
-        seed_a = jnp.where(hit, seed_h, seed)
-        if rr is not None:
-            seed_a = jnp.where(considered, seed_rr, seed_a)
-
-        # termination bookkeeping: next sample of same pixel, or next pixel
-        more_samples = term & (st["sidx"] < spp)
-        pix_done = term & ~more_samples
-        m2 = st["m"] + pix_done.astype(jnp.int32)
-        pix2 = m2 * n + lane
-        valid2 = (m2 < m_slots) & (pix2 < p_total)
-        adv = pix_done & valid2
-        fx2, fy2, fresh = pixel_init(pix2, number)
-
-        regen = more_samples | adv
-        seed_c = jnp.where(adv, fresh, seed_a)
-        fxn = jnp.where(adv, fx2, st["fx"])
-        fyn = jnp.where(adv, fy2, st["fy"])
-        seed_r, o_r, d_r = _camera_rays(seed_c, fxn, fyn, vp)
-
-        new = dict(
-            seed=jnp.where(alive, jnp.where(regen, seed_r, seed_a), seed),
-            m=m2,
-            sidx=jnp.where(adv, 1, st["sidx"] + more_samples.astype(jnp.int32)),
-            depth=jnp.where(cont, st["depth"] + 1, jnp.where(regen, 0, st["depth"])),
-            o=jnp.where(cont[:, None], point, jnp.where(regen[:, None], o_r, o)),
-            d=jnp.where(
-                cont[:, None], _normalize3(sd), jnp.where(regen[:, None], d_r, d)
-            ),
-            fx=fxn,
-            fy=fyn,
-            thr=jnp.where(
-                cont[:, None], nthr, jnp.where(regen[:, None], 1.0, st["thr"])
-            ),
-            acc=acc,
-            alive=alive & (cont | regen),
-            iters=st["iters"] + 1,
-        )
-        return new
-
-    out = jax.lax.while_loop(cond, body, state)
-    acc = out["acc"].transpose(1, 0, 2).reshape(n * m_slots, 3)[:p_total]
-    acc = acc.reshape(band_h, width, 3)
-    if return_iters:
-        return acc, out["iters"]
-    return acc
-
-
-def _render_band_mega(scene, vp, *, band_h, width, y0, seed_y0, offset_x, spp,
-                      number, accum_init, max_depth, pixels_per_lane,
-                      skip_tmax, return_iters, backend="mega", ablate=(),
-                      grid_steps=None, n_calls=None, spp_last=None, rr=None,
-                      passign=None):
-    """Megakernel driver: whole loop body in one Pallas call per iteration;
-    state in row-major [rows, lanes] arrays so the host loop does zero layout
-    conversion.  Semantics identical to the generic path (same RNG streams,
-    same scheduling).  backend="mega" brute-forces the sphere table
-    (ops/megakernel.py); backend="grid" runs the uniform-grid DDA traversal
-    (ops/gridkernel.py — requires scene.grid tables) with bit-identical
-    results."""
-    from . import megakernel as mega_mod
-
+        acc = jnp.asarray(accum_init, jnp.float32).reshape(p_total, 3).T
+    kw = dict(n_lanes=n_lanes, m_slots=m_slots, p_total=p_total, width=width,
+              max_depth=max_depth, rr=rr)
     if backend == "grid":
-        from . import gridkernel as mk
+        from .gridkernel import render_lanes
 
-        if scene.grid is None:
-            raise ValueError("grid backend requires a grid-able scene")
+        acc, iters = render_lanes(scene.grid, scene.atab, scal, vpr, acc,
+                                  interpret=interpret, **kw)
+        iters = jnp.max(iters)
     else:
-        mk = mega_mod
-
-    p_total = band_h * width
-    m_slots = max(1, min(pixels_per_lane, p_total))
-    n = -(-p_total // m_slots)  # logical lanes
-    n_pad = -(-n // mk.TILE) * mk.TILE
-    rf = mk.f_rows(m_slots)
-
-    lane = jnp.arange(n_pad, dtype=jnp.int32)
-    if passign is None:
-        pix0 = lane  # slot m=0 pixel = lane (strided map)
-    else:
-        passign = jnp.asarray(passign, jnp.int32)
-        assert passign.shape == (m_slots, n_pad), (
-            f"passign shape {passign.shape} != {(m_slots, n_pad)}")
-        pix0 = passign[0]
-    px = pix0 % width
-    py_local = pix0 // width
-    fx0 = (offset_x + px).astype(jnp.float32)
-    fy0 = (y0 + py_local).astype(jnp.float32)
-    seed0 = rngops.tea_hash(
-        rngops.tea_hash(px.astype(jnp.uint32), (seed_y0 + py_local).astype(jnp.uint32)),
-        jnp.uint32(number),
-    )
-    seed, o, d = _camera_rays(seed0, fx0, fy0, vp)
-
-    fstate = jnp.zeros((rf, n_pad), jnp.float32)
-    fstate = fstate.at[mk.R_O : mk.R_O + 3].set(o.T)
-    fstate = fstate.at[mk.R_D : mk.R_D + 3].set(d.T)
-    fstate = fstate.at[mk.R_FX].set(fx0)
-    fstate = fstate.at[mk.R_FY].set(fy0)
-    fstate = fstate.at[mk.R_THR : mk.R_THR + 3].set(1.0)
-    if accum_init is not None:
-        flat = accum_init.reshape(p_total, 3)
-        if passign is None:
-            pad = n * m_slots - p_total
-            if pad:
-                flat = jnp.concatenate(
-                    [flat, jnp.zeros((pad, 3), jnp.float32)], axis=0)
-            acc_rows = flat.reshape(m_slots, n, 3).transpose(0, 2, 1).reshape(
-                3 * m_slots, n)
-            fstate = fstate.at[mk.R_ACC : mk.R_ACC + 3 * m_slots, :n].set(
-                acc_rows)
-        else:
-            # gather the carried accumulator into the assigned slot layout
-            # (sentinel entries read the appended zero row)
-            flatp = jnp.concatenate(
-                [flat, jnp.zeros((1, 3), jnp.float32)], axis=0)
-            acc_rows = jnp.take(flatp, jnp.minimum(passign, p_total), axis=0)
-            fstate = fstate.at[mk.R_ACC : mk.R_ACC + 3 * m_slots, :].set(
-                acc_rows.transpose(0, 2, 1).reshape(3 * m_slots, n_pad))
-
-    spp = jnp.int32(spp)
-    alive0 = (((lane < n) if passign is None else (pix0 < p_total))
-              & (spp > 0)).astype(jnp.uint32)
-    ustate = jnp.zeros((mk.U_ROWS, n_pad), jnp.uint32)
-    ustate = ustate.at[mk.U_SEED].set(seed)
-    ustate = ustate.at[mk.U_SIDX].set(1)
-    ustate = ustate.at[mk.U_ALIVE].set(alive0)
-    if backend == "grid":
-        # precomputed fresh-seed rows start stale; the kernel's pl.when
-        # block fills them on the first iteration, before any renew
-        ustate = ustate.at[mk.U_PEND].set(1)
-
-    scal = jnp.zeros((1, 8), jnp.int32)
-    scal = scal.at[0, mk.S_SPP].set(spp)
-    scal = scal.at[0, mk.S_NUMBER].set(jnp.uint32(number).astype(jnp.int32))
-    scal = scal.at[0, mk.S_Y0].set(jnp.int32(y0))
-    scal = scal.at[0, mk.S_SEEDY0].set(jnp.int32(seed_y0))
-    scal = scal.at[0, mk.S_OFFX].set(jnp.int32(offset_x))
-    scal = scal.at[0, mk.S_NCALLS].set(
-        jnp.int32(1) if n_calls is None else jnp.int32(n_calls))
-    scal = scal.at[0, mk.S_SPPLAST].set(
-        spp if spp_last is None else jnp.int32(spp_last))
-    vpr = jnp.concatenate(
-        [
-            vp.horizontal, vp.vertical, vp.upper_left, vp.cam_up, vp.cam_right,
-            vp.look_from, vp.aperture[None] if vp.aperture.ndim == 0 else vp.aperture,
-            vp.size, jnp.zeros((3,), jnp.float32),
-        ]
-    ).reshape(1, 24)
-    interpret = jax.default_backend() != "tpu"
-
-    def cond(st):
-        return jnp.any(st[1][mk.U_ALIVE] != 0)
-
-    if backend == "grid":
-        g = scene.grid
-        gsteps = grid_steps if grid_steps is not None else (
-            mk.J_STEPS, mk.K_STEPS, mk.UNROLL, mk.FUSE, mk.GROUPS)
-        j_steps, k_steps = gsteps[0], gsteps[1]
-        unroll = gsteps[2] if len(gsteps) > 2 else False
-        fuse = gsteps[3] if len(gsteps) > 3 else 1
-        groups = gsteps[4] if len(gsteps) > 4 else mk.GROUPS
-
-        def body(st):
-            f, u, it = st
-            f2, u2 = mk.grid_megakernel_step(
-                scal, vpr, g.gscal, g.gtab, g.gttab, g.ctab, g.atab, f, u,
-                g.ttab, passign,
-                m_slots=m_slots, n_lanes=n, p_total=p_total, width=width,
-                max_depth=max_depth, k_steps=k_steps, j_steps=j_steps,
-                skip_tmax=skip_tmax, ablate=ablate, interpret=interpret,
-                unroll=unroll, fuse=fuse, groups=groups, rr=rr,
-                five=g.has_cy is not None,
-                n_slots=(g.has_cy.shape[1] if g.has_cy is not None
-                         else g.slots4.shape[1] if g.slots4 is not None
-                         else mk.N_SLOTS),
-            )
-            return (f2, u2, it + k_steps)
-    else:
-        atab = scene.table[:, 8:24].T
-
-        def body(st):
-            f, u, it = st
-            f2, u2 = mk.megakernel_step(
-                scal, vpr, scene.table, atab, f, u,
-                m_slots=m_slots, n_lanes=n, p_total=p_total, width=width,
-                max_depth=max_depth, skip_tmax=skip_tmax, interpret=interpret,
-                rr=rr,
-            )
-            return (f2, u2, it + mk.K_STEPS)
-
-    fstate, ustate, iters = jax.lax.while_loop(
-        cond, body, (fstate, ustate, jnp.int32(0))
-    )
-
-    if passign is None:
-        acc = (
-            fstate[mk.R_ACC : mk.R_ACC + 3 * m_slots, :n]
-            .reshape(m_slots, 3, n)
-            .transpose(0, 2, 1)
-            .reshape(m_slots * n, 3)[:p_total]
-            .reshape(band_h, width, 3)
-        )
-    else:
-        # scatter slots back to their assigned pixels (each pixel appears
-        # exactly once in the table; sentinel entries drop)
-        slots = (
-            fstate[mk.R_ACC : mk.R_ACC + 3 * m_slots, :]
-            .reshape(m_slots, 3, n_pad)
-            .transpose(0, 2, 1)
-            .reshape(m_slots * n_pad, 3)
-        )
-        acc = (
-            jnp.zeros((p_total, 3), jnp.float32)
-            .at[passign.reshape(-1)]
-            .set(slots, mode="drop")
-            .reshape(band_h, width, 3)
-        )
-    if return_iters:
-        return acc, iters
-    return acc
-
-
-
-from .megakernel import (S_NUMBER as mega_S_NUMBER, S_OFFX as mega_S_OFFX,
-                         S_SEEDY0 as mega_S_SEEDY0, S_SPP as mega_S_SPP,
-                         S_Y0 as mega_S_Y0)
-
-
-def _render_band_paged(scene, vp, *, band_h, width, y0, seed_y0, offset_x,
-                       spp, number, accum_init, max_depth, pixels_per_lane,
-                       skip_tmax, return_iters, ablate=(), k_steps=None,
-                       morton=True, carry=True, rr=None):
-    """Paged-grid driver (ops/pagedkernel.py) with lane re-bucketing.
-
-    Identical wavefront semantics to the grid/mega drivers, plus: between
-    kernel invocations, lanes are re-sorted by their (current or predicted)
-    page so each 128-lane chunk spans few pages — the paged fetch's cost is
-    proportional to the chunk's page spread.  Pixel identity rides in the
-    lane0 state row; the final accumulator is unpermuted by it.
-    """
-    from ..models.paged_grid import (P_FMINX, P_FMINZ, P_INVS, P_NSCZ,
-                                     P_XHI, P_XLO, P_YHI, P_YLO, P_ZHI,
-                                     P_ZLO)
-    from . import pagedkernel as pk
-
-    g = scene.paged
-    if g is None:
-        raise ValueError("paged backend requires a paged-grid-able scene")
-
-    p_total = band_h * width
-    m_slots = max(1, min(pixels_per_lane, p_total))
-    n = -(-p_total // m_slots)
-    n_pad = -(-n // pk.TILE) * pk.TILE
-    five = g.has_cy is not None
-    textured = g.has_tex is not None
-    nc = pk.n_carry(five, textured) if carry else 0
-    rf = pk.pf_rows(m_slots, nc)
-
-    lane = jnp.arange(n_pad, dtype=jnp.int32)
-    px = lane % width
-    py_local = lane // width
-    fx0 = (offset_x + px).astype(jnp.float32)
-    fy0 = (y0 + py_local).astype(jnp.float32)
-    seed0 = rngops.tea_hash(
-        rngops.tea_hash(px.astype(jnp.uint32), (seed_y0 + py_local).astype(jnp.uint32)),
-        jnp.uint32(number),
-    )
-    seed, o, d = _camera_rays(seed0, fx0, fy0, vp)
-
-    fstate = jnp.zeros((rf, n_pad), jnp.float32)
-    fstate = fstate.at[pk.R_O : pk.R_O + 3].set(o.T)
-    fstate = fstate.at[pk.R_D : pk.R_D + 3].set(d.T)
-    fstate = fstate.at[pk.R_FX].set(fx0)
-    fstate = fstate.at[pk.R_FY].set(fy0)
-    fstate = fstate.at[pk.R_THR : pk.R_THR + 3].set(1.0)
-    if accum_init is not None:
-        flat = accum_init.reshape(p_total, 3)
-        pad = n * m_slots - p_total
-        if pad:
-            flat = jnp.concatenate([flat, jnp.zeros((pad, 3), jnp.float32)], axis=0)
-        acc_rows = flat.reshape(m_slots, n, 3).transpose(0, 2, 1).reshape(3 * m_slots, n)
-        fstate = fstate.at[pk.R_ACC : pk.R_ACC + 3 * m_slots, :n].set(acc_rows)
-
-    spp = jnp.int32(spp)
-    alive0 = ((lane < n) & (spp > 0)).astype(jnp.uint32)
-    ustate = jnp.zeros((pk.U_ROWS, n_pad), jnp.uint32)
-    ustate = ustate.at[pk.U_SEED].set(seed)
-    ustate = ustate.at[pk.U_SIDX].set(1)
-    ustate = ustate.at[pk.U_ALIVE].set(alive0)
-    ustate = ustate.at[pk.U_LANE0].set(lane.astype(jnp.uint32))
-
-    scal = jnp.zeros((1, 8), jnp.int32)
-    scal = scal.at[0, mega_S_SPP].set(spp)
-    scal = scal.at[0, mega_S_NUMBER].set(jnp.uint32(number).astype(jnp.int32))
-    scal = scal.at[0, mega_S_Y0].set(jnp.int32(y0))
-    scal = scal.at[0, mega_S_SEEDY0].set(jnp.int32(seed_y0))
-    scal = scal.at[0, mega_S_OFFX].set(jnp.int32(offset_x))
-    vpr = jnp.concatenate(
-        [
-            vp.horizontal, vp.vertical, vp.upper_left, vp.cam_up, vp.cam_right,
-            vp.look_from, vp.aperture[None] if vp.aperture.ndim == 0 else vp.aperture,
-            vp.size, jnp.zeros((3,), jnp.float32),
-        ]
-    ).reshape(1, 24)
-
-    gs = jnp.asarray(g.gscal)
-    interpret = jax.default_backend() != "tpu"
-
-    def _morton(sx, sz):
-        """Interleave two 6-bit 8x8-supercell coords.
-
-        The sort key must keep a sorted 128-lane chunk spatially COMPACT:
-        sorting by linear page id (sx*nscz+sz) makes a chunk that straddles
-        an x boundary span the full z range — a (2 x nscz) fetch box.
-        Morton order bounds a contiguous run to a ~square cluster, so the
-        kernel's 2-D box loops (pagedkernel._page_fetch) stay ~2x2.  The
-        sort runs at 8x8 granularity — FINER than the kernel's 8x16 pages
-        (a chunk compact in 8x8 coords is automatically compact in 8x16
-        page coords), kept from the era of 8x8 attr pages because a finer
-        sort never widens a box.
-
-        ``morton=False`` (grid_steps[3]=0) keeps the linear key for A/B
-        (its nscz uses the legacy 8x8 z supercell count, P_NSCZ)."""
-        if not morton:
-            return sx * gs[0, P_NSCZ].astype(jnp.int32) + sz
-
-        def part(v):
-            v = (v | (v << 8)) & 0x00F00F
-            v = (v | (v << 4)) & 0x0C30C3
-            v = (v | (v << 2)) & 0x249249
-            return v
-
-        return part(sx) | (part(sz) << 1)
-
-    def _pred_page(f, u):
-        """Sort key: marching lanes use their cell page; fresh lanes use the
-        page where their ray enters the grid box; dead lanes sort last."""
-        ox, oy, oz = f[0], f[1], f[2]
-        dx, dy, dz = f[3], f[4], f[5]
-        alive = u[pk.U_ALIVE] != 0
-        marching = u[pk.U_MARCH] != 0
-        cell = u[pk.U_CELL].astype(jnp.int32)
-        page_m = _morton((cell >> 12) >> 3, (cell & 4095) >> 3)
-
-        def axis_clip(o_c, d_c, lo, hi):
-            inv = 1.0 / d_c
-            ta = (lo - o_c) * inv
-            tb = (hi - o_c) * inv
-            t0 = jnp.minimum(ta, tb)
-            t1 = jnp.maximum(ta, tb)
-            deg = d_c == 0.0
-            inside = (o_c >= lo) & (o_c <= hi)
-            big = jnp.float32(3e30)
-            t0 = jnp.where(deg, jnp.where(inside, -big, big), t0)
-            t1 = jnp.where(deg, jnp.where(inside, big, -big), t1)
-            return t0, t1
-
-        t0x, t1x = axis_clip(ox, dx, gs[0, P_XLO], gs[0, P_XHI])
-        t0y, t1y = axis_clip(oy, dy, gs[0, P_YLO], gs[0, P_YHI])
-        t0z, t1z = axis_clip(oz, dz, gs[0, P_ZLO], gs[0, P_ZHI])
-        t_start = jnp.maximum(jnp.maximum(t0x, t0y), jnp.maximum(t0z, 1e-3))
-        t_end = jnp.minimum(jnp.minimum(t1x, t1y), t1z)
-        pxw = ox + t_start * dx
-        pzw = oz + t_start * dz
-        icx = jnp.clip(jnp.floor((pxw - gs[0, P_FMINX]) * gs[0, P_INVS]),
-                       0.0, gs[0, 10]).astype(jnp.int32)
-        icz = jnp.clip(jnp.floor((pzw - gs[0, P_FMINZ]) * gs[0, P_INVS]),
-                       0.0, gs[0, 11]).astype(jnp.int32)
-        page_p = _morton(icx >> 3, icz >> 3)
-        page_p = jnp.where(t_start <= t_end, page_p, jnp.int32(4096))
-        key = jnp.where(marching, page_m, page_p)
-        return jnp.where(alive, key, jnp.int32(4097))
-
-    def rebucket(f, u):
-        perm = jnp.argsort(_pred_page(f, u), stable=True)
-        return jnp.take(f, perm, axis=1), jnp.take(u, perm, axis=1)
-
-    def cond(st):
-        return jnp.any(st[1][pk.U_ALIVE] != 0)
-
-    # k_steps=None falls back to the module default scaled by lane count
-    # (the Renderer normally passes the interval explicitly, already
-    # scaled — see Renderer.render_frame's K_AUTO logic and the sweep
-    # data cited there)
-    k = pk.scaled_k(n) if k_steps is None else k_steps
-
-    def body(st):
-        f, u, it = st
-        f, u = rebucket(f, u)
-        f2, u2 = pk.paged_megakernel_step(
-            scal, vpr, gs, jnp.asarray(g.gtab), jnp.asarray(g.geom),
-            jnp.asarray(g.lids), jnp.asarray(g.attrs), f, u,
-            m_slots=m_slots, n_lanes=n, p_total=p_total, width=width,
-            max_depth=max_depth, skip_tmax=skip_tmax, k_steps=k,
-            ablate=ablate, interpret=interpret, five=five,
-            textured=textured, carry=carry, rr=rr,
-            govf=None if g.govf is None else jnp.asarray(g.govf),
-        )
-        return (f2, u2, it + k)
-
-    fstate, ustate, iters = jax.lax.while_loop(
-        cond, body, (fstate, ustate, jnp.int32(0))
-    )
-
-    # unpermute by lane0 (acc columns belong to logical lanes)
-    inv = jnp.argsort(ustate[pk.U_LANE0].astype(jnp.int32), stable=True)
-    acc_perm = fstate[pk.R_ACC : pk.R_ACC + 3 * m_slots]
-    acc_rows = jnp.take(acc_perm, inv, axis=1)[:, :n]
-    acc = (
-        acc_rows.reshape(m_slots, 3, n)
-        .transpose(0, 2, 1)
-        .reshape(m_slots * n, 3)[:p_total]
-        .reshape(band_h, width, 3)
-    )
+        acc, iters = _render_xla(scene, scal, vpr, acc, backend=backend, **kw)
+    acc = acc.T.reshape(band_h, width, 3)
     if return_iters:
         return acc, iters
     return acc
@@ -858,7 +247,6 @@ render_band = jax.jit(
     render_band_core,
     static_argnames=(
         "band_h", "width", "max_depth", "backend", "pixels_per_lane",
-        "skip_tmax", "return_iters", "ablate", "grid_steps", "rr",
+        "return_iters", "rr", "interpret",
     ),
 )
-

@@ -10,8 +10,8 @@ line-for-line in float32 with the exact TEA+LCG RNG stream:
 - miss (constant sky):          /root/reference/shaders/shader.rmiss:13-18
 - RNG:                          /root/reference/shaders/random.glsl
 
-This is the "lavapipe/reference math" config of BASELINE.json: the TPU
-wavefront kernel is validated against this oracle (near-bitwise in
+This is the "lavapipe/reference math" config of BASELINE.json: the device
+wavefront is validated against this oracle (near-bitwise in
 ``rng="reference"`` mode).  Only the per-sphere loop is vectorized (numpy over
 the 512-sphere axis), matching "test all candidates, keep closest t".
 """

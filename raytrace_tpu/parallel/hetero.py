@@ -9,7 +9,7 @@ Vulkan resources every tuning round (:778-915); here a re-split just changes
 band heights, i.e. jit cache keys (the persistent compile cache absorbs the
 rebuild cost).
 
-Use ``MultiChipRenderer`` (sharding.py) for homogeneous TPU slices — a static
+Use ``MultiChipRenderer`` (sharding.py) for homogeneous devices — a static
 equal split over a Mesh is optimal there.  This path exists for heterogeneous
 pools and for architecture parity, and is exercised on the virtual CPU mesh
 in tests.
@@ -31,9 +31,9 @@ import numpy as np
 from ..config import RenderConfig
 from ..models.scene import SceneArrays, generate_random_scene
 from ..ops import image as imageops
-from ..ops.trace import (prepare_scene, render_band, tmax_never_binds,
-                         viewport_arrays)
-from ..runtime.renderer import config_camera, resolve_backend
+from ..ops.trace import prepare_scene, render_band, viewport_arrays
+from ..runtime.renderer import (config_camera, default_pixels_per_lane,
+                                resolve_backend)
 from ..runtime.tuner import make_tuner
 
 
@@ -62,12 +62,9 @@ class HeteroRenderer:
         self.backend = resolve_backend(config.backend, ds)
         self.device_scenes = [jax.device_put(ds, d) for d in self.devices]
         self.vp = viewport_arrays(config_camera(config), config.width, config.height)
-        self.skip_tmax = tmax_never_binds(self.scene, config_camera(config))
         self.device_vps = [jax.device_put(self.vp, d) for d in self.devices]
-        if config.pixels_per_lane is not None:
-            self.pixels_per_lane = config.pixels_per_lane
-        else:
-            self.pixels_per_lane = int(np.clip((config.width * h // max(self.n, 1)) >> 15, 1, 64))
+        self.pixels_per_lane = default_pixels_per_lane(
+            config, config.width * h // max(self.n, 1))
 
     def set_scene(self, scene: SceneArrays) -> None:
         """Swap the scene (animation: a new `generate_random_scene(t)` per
@@ -78,7 +75,6 @@ class HeteroRenderer:
         ds = prepare_scene(scene)
         self.backend = resolve_backend(self.config.backend, ds)
         self.device_scenes = [jax.device_put(ds, d) for d in self.devices]
-        self.skip_tmax = tmax_never_binds(scene, config_camera(self.config))
 
     def set_camera(self, config: RenderConfig) -> None:
         """Adopt a config with a new camera (viewer steering input); rebuilds
@@ -87,7 +83,6 @@ class HeteroRenderer:
         cam = config_camera(config)
         self.vp = viewport_arrays(cam, config.width, config.height)
         self.device_vps = [jax.device_put(self.vp, d) for d in self.devices]
-        self.skip_tmax = tmax_never_binds(self.scene, cam)
 
     def _offsets(self) -> List[int]:
         out, acc = [], 0
@@ -121,7 +116,6 @@ class HeteroRenderer:
                     max_depth=cfg.max_depth,
                     backend=self.backend,
                     pixels_per_lane=min(self.pixels_per_lane, max(1, self.rows[i] * cfg.width)),
-                    skip_tmax=self.skip_tmax,
                     rr=cfg.rr,
                 )
             )

@@ -1,6 +1,6 @@
 """Multi-chip data parallelism: row-band split over a device mesh.
 
-TPU-native replacement for the reference's multi-GPU spatial data parallelism
+The replacement for the reference's multi-GPU spatial data parallelism
 (/root/reference/src/ray_trace.cpp:74-105): the image is split into horizontal
 row bands, one per device, with the scene replicated — exactly the reference's
 scheme, but expressed as ``shard_map`` over a 1-D ``jax.sharding.Mesh`` instead
@@ -12,7 +12,7 @@ data); here the single sharded output array plays that role, and the only
 Seed semantics (``reference_banding``):
 - ``False`` (default): every band seeds from global pixel rows, so an
   N-device render is bit-identical to the single-device render — the
-  TPU-first choice, and what the multichip test asserts.
+  default, and what the multichip test asserts.
 - ``True``: bands seed from band-local rows like the reference's per-GPU
   launches (shader.rgen:40 with per-device offset at :45), reproducing the
   reference's multi-GPU RNG layout (statistically identical images).
@@ -30,9 +30,9 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..config import RenderConfig
 from ..models.scene import SceneArrays, generate_random_scene
 from ..ops import image as imageops
-from ..ops.trace import (prepare_scene, render_band_core, tmax_never_binds,
-                         viewport_arrays)
-from ..runtime.renderer import config_camera, resolve_backend
+from ..ops.trace import prepare_scene, render_band_core, viewport_arrays
+from ..runtime.renderer import (config_camera, default_pixels_per_lane,
+                                resolve_backend)
 
 
 def make_mesh(n_devices: Optional[int] = None) -> Mesh:
@@ -44,8 +44,9 @@ def make_mesh(n_devices: Optional[int] = None) -> Mesh:
 
 
 class MultiChipRenderer:
-    """Renders row bands across a mesh; falls back to single-chip when the
-    mesh would have one device."""
+    """Renders row bands across a 1-D mesh, one band per device (every
+    device reaches every other at the same rate, so the mesh follows the
+    row split alone)."""
 
     def __init__(
         self,
@@ -69,12 +70,9 @@ class MultiChipRenderer:
         else:
             self.padded_h = h
         self.band_h = self.padded_h // self.n
-        if config.pixels_per_lane is not None:
-            self.pixels_per_lane = config.pixels_per_lane
-        else:
-            self.pixels_per_lane = int(np.clip((w * self.band_h) >> 15, 1, 64))
+        self.pixels_per_lane = default_pixels_per_lane(config,
+                                                       w * self.band_h)
         self.vp = viewport_arrays(config_camera(config), w, h)
-        self.skip_tmax = tmax_never_binds(self.scene, config_camera(config))
 
         self._compiled = {}  # has_accum -> jitted shard_map fn
 
@@ -87,7 +85,6 @@ class MultiChipRenderer:
         ref_banding = self.reference_banding
         backend, max_depth = self.backend, cfg.max_depth
         ppl = self.pixels_per_lane
-        skip_tmax = self.skip_tmax
 
         def band_fn(scene, vp, spp, number, accum_band):
             i = jax.lax.axis_index("band")
@@ -97,7 +94,7 @@ class MultiChipRenderer:
                 scene, vp, band_h=band_h, width=w, y0=y0, seed_y0=seed_y0,
                 offset_x=jnp.int32(0), spp=spp, number=number,
                 accum_init=accum_band, max_depth=max_depth, backend=backend,
-                pixels_per_lane=ppl, skip_tmax=skip_tmax, rr=self.config.rr,
+                pixels_per_lane=ppl, rr=cfg.rr,
             )
 
         if has_accum:

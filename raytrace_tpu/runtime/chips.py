@@ -1,31 +1,14 @@
-"""Per-chip kernel/runtime constants (VERDICT r2 item 9).
+"""Per-device runtime constants, keyed by ``device_kind``.
 
-The wavefront kernel's operating point was tuned by measurement on TPU
-v5e-lite (docs/PERFORMANCE.md).  Other chips shift the optimum in
-predictable directions — more VMEM allows larger TILE before spills, more
-cores/higher clock shortens a call so ``samples_per_call`` can grow within
-the same watchdog budget, and HBM bandwidth moves the state-DMA/compute
-balance.  This table records the recommended soft knobs per device kind.
-Consumers: ``Renderer`` reads ``lanes_target``/``m_max`` for the
-pixels-per-lane heuristic; ``bench.py`` reads ``samples_per_call`` for its
-watchdog-safe chunking default; ``calls_per_exec`` is the recommended
-``RenderConfig.calls_per_exec`` when opting into the in-kernel call merge
-(long renders with small per-call spp).  TILE/K/J are
-compile-time kernel constants (``ops/gridkernel.py``) — their per-chip
-optima are listed here as documentation and as the seed values for a
-measurement pass on new hardware (use scripts/grid_ablate.py +
-scripts/grid_jsweep.py: compile variants up front, interleaved rounds,
-medians).
+``Renderer`` reads ``lanes_target``/``m_max`` to pick the wavefront's
+pixels per lane (M) for a frame, and ``parallel/sharding.py`` does the same
+per band.  The image is bit-identical for every M; M only moves speed: more
+lanes fill more of the device, fewer lanes average more pixels per lane
+(shorter straggler tails).
 
-The rows for chips this repo has not run on are ROOFLINE PROJECTIONS, not
-measurements — see docs/PERFORMANCE.md "Scaling expectations" for the
-derivation (VPU lanes x clock scaling of the measured v5e-lite floor).
-
-``runtime/autotune.py`` turns the seed values here into a measured
-operating point on the live chip (``python -m raytrace_tpu --autotune``):
-it sweeps (M, j, K) around the profile with the interleaved-round
-methodology and caches the winner per device kind.  On day one of a new
-chip, run that instead of trusting the projection rows.
+Every row is a measurement on that device (PERF.md).  A device kind not in
+the table is an error, not a default: a new device gets its row from a
+measurement first.
 """
 
 from __future__ import annotations
@@ -37,44 +20,28 @@ from typing import Optional
 @dataclass(frozen=True)
 class ChipProfile:
     kind_substr: str  # matched against jax.devices()[0].device_kind
-    lanes_target: int  # wavefront lanes to aim for (Renderer M heuristic)
+    lanes_target: int  # wavefront lanes to aim for (M heuristic)
     m_max: int  # pixels-per-lane cap
-    samples_per_call: int  # keeps one call under the ~100 s watchdog
-    calls_per_exec: int  # in-kernel call-merge group (grid backend)
-    # documented kernel compile-time optima (measured on lite; projected
-    # elsewhere):
-    tile: int
-    k_steps: int
-    j_steps: int
-    note: str = ""
 
 
 PROFILES = (
-    ChipProfile("v5 lite", 1 << 15, 64, 2500, 1, 4096, 40, 2,
-                "measured operating point (docs/PERFORMANCE.md)"),
-    ChipProfile("v5e", 1 << 15, 64, 2500, 1, 4096, 40, 2,
-                "same VPU geometry as lite at higher clock"),
-    ChipProfile("v5p", 1 << 15, 64, 6000, 1, 4096, 40, 2,
-                "~2.3x lite VPU throughput -> calls finish ~2.3x sooner; "
-                "raise samples_per_call to keep ~35 s calls"),
-    ChipProfile("v6", 1 << 15, 64, 5000, 1, 4096, 40, 2,
-                "projection only; re-run the ablation scripts to pin"),
+    # grid kernel, book scene 1920x1080, 320 spp: M = 2..6 within 2% of
+    # each other, M = 16 13% slower (PERF.md); 2^19 lanes gives M = 3
+    ChipProfile("H100", 1 << 19, 64),
+    ChipProfile("cpu", 1 << 15, 64),  # tests and CPU debugging
 )
-
-DEFAULT = PROFILES[0]
 
 
 def profile_for(device_kind: Optional[str] = None) -> ChipProfile:
-    """Profile for the live (or given) device kind; v5e-lite row otherwise."""
+    """Profile for the live (or given) device kind; raises for a kind the
+    table does not know."""
     if device_kind is None:
-        try:
-            import jax
+        import jax
 
-            device_kind = jax.devices()[0].device_kind
-        except Exception:
-            return DEFAULT
-    kind = (device_kind or "").lower()
+        device_kind = jax.devices()[0].device_kind
+    kind = device_kind.lower()
     for p in PROFILES:
-        if p.kind_substr in kind:
+        if p.kind_substr.lower() in kind:
             return p
-    return DEFAULT
+    raise ValueError(f"no runtime profile for device kind {device_kind!r} "
+                     "(runtime/chips.py)")

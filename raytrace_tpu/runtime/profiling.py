@@ -1,5 +1,5 @@
 """Profiling/observability — the reference has host wall-clocks only
-(SURVEY.md §5: std::chrono around the frame loop); on TPU we add real device
+(SURVEY.md §5: std::chrono around the frame loop); here we add real device
 traces via jax.profiler plus structured per-call timing.
 """
 

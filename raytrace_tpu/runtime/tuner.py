@@ -10,8 +10,8 @@ pure-Python fallback.  Same algorithm as the reference's tune:: namespace
    row between two random devices;
 3. else: converged (``None``).
 
-On a homogeneous TPU slice the static equal split is already optimal; the
-tuner exists for heterogeneity parity (mixed-generation pools, a chip
+On homogeneous devices the static equal split is already optimal; the
+tuner exists for heterogeneity parity (mixed-generation pools, a card
 throttling) and is exercised by the heterogeneous dispatch path in
 ``parallel/hetero.py``.
 

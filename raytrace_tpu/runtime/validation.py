@@ -1,12 +1,14 @@
-"""On-device numeric validation against the CPU-oracle golden.
+"""Numeric validation of the compiled backends on the live device.
 
-The pytest suite runs every kernel in interpret mode on CPU; this module
-validates the *compiled* kernels' numerics on whatever backend is live
-(Mosaic sin/sqrt/fma can differ from XLA-CPU by ulps, which flips a few
-fp-chaotic pixels — the bulk must agree).  Used by scripts/tpu_smoke.py and
-embedded into bench.py's JSON as the ``numeric_check`` field (VERDICT r1
-item 7: the hardware numeric check is a recorded artifact of every bench
-run, not a side script).
+The pytest suite runs the grid kernel in interpret mode on the CPU, where it
+is the same jnp code as ``bruteforce``; this module checks what the card's
+compilers make of it.  On the GPU, Triton and XLA contract multiply-adds
+into FMAs in different places and libdevice's sin differs from XLA's by
+ulps, so a few fp-chaotic pixels (grazing hits, checker seams) flip while
+the bulk agrees.  Each check therefore reports both the flipped-pixel count
+(a tolerance, stated with its reason) and the statistical comparator of
+utils/compare.py.  Used by chip_smoke.py; the CPU tests run each check
+with the kernel interpreted (tests/conftest.py ``interpret_kernel``).
 """
 
 from __future__ import annotations
@@ -19,10 +21,10 @@ import numpy as np
 W, H, SPP, DEPTH = 24, 14, 2, 12
 _DATA = os.path.join(os.path.dirname(__file__), "..", "..", "tests", "data")
 GOLDEN = os.path.join(_DATA, "golden_fullscene_24x14_2spp_d12.npy")
-# multi-tile config: 9216 lanes at pixels_per_lane=1 spans several kernel
-# grid steps — catches block-pipelining bugs (e.g. Mosaic aliased outputs
-# not preserving unwritten rows) that a single-tile render can't see
+# multi-block config: 9216 lanes at pixels_per_lane=1 spans many kernel
+# programs (and the partial last block)
 GOLDEN_MT = os.path.join(_DATA, "golden_fullscene_128x72_2spp_d8.npy")
+BAD_PX_ATOL = 1e-3  # a pixel "differs" when a channel sum moves past this
 
 
 def _fast_rr():
@@ -31,57 +33,64 @@ def _fast_rr():
     return (_cfg.RR_START_DEPTH, _cfg.RR_CAP_DEPTH, _cfg.RR_PMIN)
 
 
-def _render_golden_config(backend: str, multi_tile: bool, m=None, rr=None,
-                          spp: int = SPP):
+def _render(backend: str, w: int, h: int, depth: int, spp: int, m: int,
+            rr=None, y0: int = 0,
+            band_h: Optional[int] = None, scene=None):
     from ..models.scene import generate_random_scene
     from ..ops.trace import prepare_scene, render_band, viewport_arrays
     from .renderer import reference_camera
 
+    ds = prepare_scene(scene if scene is not None
+                       else generate_random_scene(0.0))
+    vp = viewport_arrays(reference_camera(), w, h)
+    return np.asarray(render_band(
+        ds, vp, band_h=h if band_h is None else band_h, width=w,
+        y0=np.int32(y0), seed_y0=np.int32(y0), offset_x=np.int32(0),
+        spp=np.int32(spp), number=np.uint32(0), max_depth=depth,
+        backend=backend, pixels_per_lane=m, rr=rr))
+
+
+def _render_golden_config(backend: str, multi_tile: bool, m=None, rr=None,
+                          spp: int = SPP):
     if multi_tile:
         w, h, depth = 128, 72, 8
         m = 1 if m is None else m
     else:
         w, h, depth = W, H, DEPTH
         m = 3 if m is None else m
-    ds = prepare_scene(generate_random_scene(0.0))
-    vp = viewport_arrays(reference_camera(), w, h)
-    out = np.asarray(render_band(
-        ds, vp, band_h=h, width=w, y0=np.int32(0), seed_y0=np.int32(0),
-        offset_x=np.int32(0), spp=np.int32(spp), number=np.uint32(0),
-        max_depth=depth, backend=backend, pixels_per_lane=m, skip_tmax=True,
-        rr=rr))
+    out = _render(backend, w, h, depth, spp, m, rr=rr)
     return out, (w, h)
 
 
-def golden_check(backend: str = "mega", golden_path: Optional[str] = None,
+def _diff_stats(a: np.ndarray, b: np.ndarray) -> dict:
+    diff = np.abs(a - b).max(axis=2)
+    return {"diff_px": int((diff > 0).sum()),
+            "bad_px": int((diff > BAD_PX_ATOL).sum()),
+            "total_px": int(diff.size),
+            "max_diff": float(diff.max())}
+
+
+def golden_check(backend: str = "grid", golden_path: Optional[str] = None,
                  multi_tile: bool = False, mode: str = "exact") -> dict:
     """Render the golden config with ``backend`` on the live platform and
     compare against the stored CPU-oracle artifact.
 
-    Pass criteria (VERDICT r2 weak #4: the old 5%-pixels/5%-mean gate would
-    have passed a mildly wrong kernel): the statistical comparator's
-    ``matches()`` — per-tile z-scores within sampling error AND <2% mean
-    shift — plus the flipped-pixel diagnostics for the artifact.
+    Pass criterion: the statistical comparator's ``matches()`` — per-tile
+    z-scores within sampling error AND <2% mean shift; the flipped-pixel
+    counts are reported beside it.
     """
     from ..utils.compare import compare_accums
 
-    if multi_tile:
-        golden = np.load(golden_path or GOLDEN_MT)
-    else:
-        golden = np.load(golden_path or GOLDEN)
-    out, (w, h) = _render_golden_config(
+    golden = np.load(golden_path or (GOLDEN_MT if multi_tile else GOLDEN))
+    out, _ = _render_golden_config(
         backend, multi_tile, rr=_fast_rr() if mode == "fast" else None)
-    diff = np.abs(out - golden)
-    bad = int((diff.max(axis=2) > 1e-3).sum())
     # the tile size must DIVIDE the golden dims or compare_accums silently
     # crops the remainder out of the z gate: 8 | (128, 72); 2 | (24, 14)
     res = compare_accums(out, golden, SPP, SPP, tile=8 if multi_tile else 2)
     return {
-        "backend": backend,
+        "check": f"{backend}==oracle golden",
         "mode": mode,
-        "bad_px": bad,
-        "total_px": w * h,
-        "max_diff": float(diff.max()),
+        **_diff_stats(out, golden),
         "mean_rel": round(res.mean_rel_diff, 6),
         "tile_p95_z": round(res.tile_p95_z, 3),
         "psnr_db": round(res.psnr_db, 2),
@@ -89,29 +98,25 @@ def golden_check(backend: str = "mega", golden_path: Optional[str] = None,
     }
 
 
-FAST_CHECK_SPP = 64  # the 2-spp gate had no power against a mildly biased
-# RR implementation (noise-vs-noise, psnr ~11 dB even when correct —
-# VERDICT r4 weak #1); at 64 spp the per-tile z-gate's sampling noise is
-# ~5.7x smaller while a bias term is unchanged, and the recorded psnr is a
-# meaningful signal-vs-signal number (~35-40 dB when fast mode is right,
-# matching the 400-spp hardware A/Bs in docs/PERFORMANCE.md).  Costs ~2 s
-# of device time per bench run — cheap for a per-run unbiasedness artifact.
+FAST_CHECK_SPP = 64  # at 2 spp the gate has no power against a mildly
+# biased RR implementation (noise against noise); at 64 spp the per-tile
+# z-gate's sampling noise is ~5.7x smaller while a bias term is unchanged
 
 
-def fast_check(spp: int = FAST_CHECK_SPP) -> dict:
+def fast_check(spp: int = FAST_CHECK_SPP, backend: str = "grid") -> dict:
     """Fast (Russian-roulette) vs exact mode on the live platform, compared
-    statistically on the multi-tile golden config at ``spp`` samples — the
-    recorded artifact that the production mode's estimator is unbiased on
-    real hardware (VERDICT r3 item 1's numeric gate, re-powered per VERDICT
-    r4 item 2a)."""
+    statistically on the multi-block golden config at ``spp`` samples —
+    the check that the fast estimator is unbiased.  The PSNR is that of
+    two independent 64-spp estimates of the same image, so it measures
+    their noise, not an error."""
     from ..utils.compare import compare_accums
 
-    exact, (w, h) = _render_golden_config("grid", multi_tile=True, spp=spp)
-    fast, _ = _render_golden_config("grid", multi_tile=True, rr=_fast_rr(),
+    exact, _ = _render_golden_config(backend, multi_tile=True, spp=spp)
+    fast, _ = _render_golden_config(backend, multi_tile=True, rr=_fast_rr(),
                                     spp=spp)
     res = compare_accums(fast, exact, spp, spp, tile=8)
     return {
-        "check": "fast==exact (statistical)",
+        "check": f"{backend} fast==exact (statistical)",
         "rr": list(_fast_rr()),
         "spp": spp,
         "mean_rel": round(res.mean_rel_diff, 6),
@@ -121,96 +126,62 @@ def fast_check(spp: int = FAST_CHECK_SPP) -> dict:
     }
 
 
-def merge_check() -> dict:
-    """In-kernel call merge vs host-loop calls on the live platform,
-    compared bitwise (multi-tile golden config, 2 calls of 1 spp).  On TPU
-    hardware these are expected bit-identical — in-kernel ray regen is bit-
-    equal to the driver's (the M-invariance pin) and the merge preserves
-    accumulation order; recorded per bench run as an artifact."""
-    from ..models.scene import generate_random_scene
-    from ..ops.trace import prepare_scene, render_band, viewport_arrays
-    from .renderer import reference_camera
-
-    w, h, depth = 128, 72, 8
-    ds = prepare_scene(generate_random_scene(0.0))
-    vp = viewport_arrays(reference_camera(), w, h)
-
-    def call(number, accum=None, n_calls=None, spp_last=None):
-        return render_band(
-            ds, vp, band_h=h, width=w, y0=np.int32(0), seed_y0=np.int32(0),
-            offset_x=np.int32(0), spp=np.int32(1), number=np.uint32(number),
-            accum_init=accum, max_depth=depth, backend="grid",
-            pixels_per_lane=1, skip_tmax=True,
-            n_calls=None if n_calls is None else np.int32(n_calls),
-            spp_last=None if spp_last is None else np.int32(spp_last))
-
-    a = np.asarray(call(1, accum=call(0)))
-    b = np.asarray(call(0, n_calls=2, spp_last=1))
-    ndiff = int((a != b).any(axis=2).sum())
-    return {
-        "check": "call_merge==host_loop",
-        "diff_px": ndiff,
-        "total_px": w * h,
-        "bit_identical": bool(ndiff == 0),
-        "max_diff": float(np.abs(a - b).max()),
-    }
-
-
 def bandsplit_check(backend: str = "grid", n_bands: int = 4) -> dict:
     """Row-band split vs whole-frame render on the live platform, compared
-    bitwise (VERDICT r3 item 6).  This is the multi-chip data-parallel claim
-    — an N-device shard_map render runs exactly these per-band programs
+    bitwise.  This is the multi-device data-parallel claim — an N-device
+    shard_map render runs exactly these per-band programs
     (parallel/sharding.py global-seed mode; ray_trace.cpp:74-105 banding
-    analogue) — recorded on real hardware where the compiled Mosaic kernel
-    is shape-invariant per tile, instead of only as the CPU-mesh tolerance
-    test (tests/test_multichip.py)."""
-    from ..models.scene import generate_random_scene
-    from ..ops.trace import prepare_scene, render_band, viewport_arrays
-    from .renderer import reference_camera
-
+    analogue).  A lane's arithmetic does not depend on the band's shape,
+    so the split is expected to be bit-identical."""
     w, h, depth = 128, 72, 8
     assert h % n_bands == 0
     bh = h // n_bands
-    ds = prepare_scene(generate_random_scene(0.0))
-    vp = viewport_arrays(reference_camera(), w, h)
+    whole = _render(backend, w, h, depth, SPP, 1)
+    split = np.concatenate(
+        [_render(backend, w, h, depth, SPP, 1, y0=i * bh, band_h=bh)
+         for i in range(n_bands)], axis=0)
+    stats = _diff_stats(whole, split)
+    return {"check": f"{backend} bandsplit({n_bands})==whole",
+            **stats, "bit_identical": stats["diff_px"] == 0,
+            "ok": stats["diff_px"] == 0}
 
-    def band(y0, band_h):
-        return np.asarray(render_band(
-            ds, vp, band_h=band_h, width=w, y0=np.int32(y0),
-            seed_y0=np.int32(y0), offset_x=np.int32(0), spp=np.int32(SPP),
-            number=np.uint32(0), max_depth=depth, backend=backend,
-            pixels_per_lane=1, skip_tmax=True))
 
-    whole = band(0, h)
-    split = np.concatenate([band(i * bh, bh) for i in range(n_bands)], axis=0)
-    ndiff = int((whole != split).any(axis=2).sum())
+def backend_check(backend_a: str = "grid", backend_b: str = "bruteforce",
+                  mode: str = "exact", scene=None, size=(128, 72),
+                  depth: int = 8, spp: int = SPP,
+                  bad_frac: float = 0.01) -> dict:
+    """Render one config through ``Renderer`` with two backends on the live
+    platform (brute force in memory-bounded bands; ``auto`` resolves as
+    for users) and compare pixel by pixel: at most ``bad_frac`` of the
+    pixels may move past BAD_PX_ATOL (fp-chaotic pixels: the two compilers
+    round differently), and the statistical comparator must match."""
+    from ..config import RenderConfig
+    from ..models.scene import generate_random_scene
+    from ..utils.compare import compare_accums
+    from .renderer import Renderer
+
+    scene = scene if scene is not None else generate_random_scene(0.0)
+    w, h = size
+    outs, names = [], []
+    for b in (backend_a, backend_b):
+        r = Renderer(RenderConfig(samples=spp, width=w, height=h,
+                                  max_depth=depth, backend=b, mode=mode,
+                                  pixels_per_lane=1),
+                     scene=scene)
+        outs.append(np.asarray(r.render_call(spp)))
+        names.append(r.backend)
+    a, b = outs
+    stats = _diff_stats(a, b)
+    tile = 8 if w % 8 == 0 and h % 8 == 0 else 2
+    res = compare_accums(a, b, spp, spp, tile=tile)
     return {
-        "check": f"bandsplit({n_bands})==whole",
-        "backend": backend,
-        "diff_px": ndiff,
-        "total_px": w * h,
-        "bit_identical": bool(ndiff == 0),
-        "max_diff": float(np.abs(whole - split).max()),
-    }
-
-
-def bitident_check(backend_a: str = "grid", backend_b: str = "mega",
-                   mode: str = "exact") -> dict:
-    """Render the multi-tile golden config with two backends on the live
-    platform and compare bitwise.  On TPU hardware grid==mega is expected
-    bit-identical (same-graph Mosaic fp, docs/PERFORMANCE.md "Mosaic facts")
-    in BOTH modes — fast mode's RR is deterministic given seeds;
-    recording it in the bench JSON makes that claim a per-run artifact
-    rather than an interpret-mode-only test pin (VERDICT r2 weak #4)."""
-    rr = _fast_rr() if mode == "fast" else None
-    a, (w, h) = _render_golden_config(backend_a, multi_tile=True, rr=rr)
-    b, _ = _render_golden_config(backend_b, multi_tile=True, rr=rr)
-    ndiff = int((a != b).any(axis=2).sum())
-    return {
-        "backends": f"{backend_a}=={backend_b}",
+        "check": f"{names[0]}=={names[1]}",
         "mode": mode,
-        "diff_px": ndiff,
-        "total_px": w * h,
-        "bit_identical": bool(ndiff == 0),
-        "max_diff": float(np.abs(a - b).max()),
+        **stats,
+        "bad_frac_limit": bad_frac,
+        "mean_rel": round(res.mean_rel_diff, 6),
+        "tile_p95_z": round(res.tile_p95_z, 3),
+        "finite": bool(np.isfinite(a).all() and np.isfinite(b).all()),
+        "ok": bool(stats["bad_px"] <= bad_frac * stats["total_px"]
+                   and res.matches() and np.isfinite(a).all()),
     }

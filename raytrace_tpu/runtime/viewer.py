@@ -3,7 +3,7 @@
 The reference presents each GPU's band in a borderless window tiled on
 screen and feeds cursor position into a camera-direction input
 (/root/reference/src/window.hpp:29-54 presentation, :42-46 cursor->camera —
-dead code there, quirk Q4; live here).  On a headless TPU rig the analogue
+dead code there, quirk Q4; live here).  On a headless machine the analogue
 is an HTTP viewer: the renderer streams the running image after every
 progressive call, and the browser (or any HTTP client) can steer the
 camera, which restarts accumulation with the new view.

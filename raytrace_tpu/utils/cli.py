@@ -1,9 +1,9 @@
 """CLI — mirror of the reference argument surface (main.cpp:10-64).
 
 Same six flags with the same defaults (--help/--store/--samples/--width/
---height/--gpus), the same "unknown argument" stderr behavior, plus TPU-only
-extras that have no Vulkan analogue (--out/--backend/--depth/--time/
---samples-per-call).  Unlike the reference, --store actually writes a PNG
+--height/--gpus), the same "unknown argument" stderr behavior, plus extras
+that have no Vulkan analogue (--out/--backend/--depth/--time/
+--samples-per-call/...).  Unlike the reference, --store actually writes a PNG
 (quirk Q2 delivered).
 """
 
@@ -17,9 +17,9 @@ HELP = """\
 --samples <count>                 # Total samples to render
 --width <width>                   # Image width
 --height <height>                 # Image height
---gpus <count>                    # Max used TPU chips count
+--gpus <count>                    # Max used devices count
 --out <path>                      # Output PNG path (default render.png)
---backend <auto|grid|paged|mega|matmul|bruteforce|pallas>  # Intersection backend
+--backend <auto|grid|matmul|bruteforce>  # Intersection backend
 --depth <count>                   # Max bounce depth (default 50)
 --time <seconds>                  # Scene animation time (default 0)
 --samples-per-call <count>        # Progressive accumulation chunk
@@ -28,11 +28,6 @@ HELP = """\
 --preview                         # Write the running PNG after each call
 --frames <count>                  # Animated frame loop (0 = adaptive window)
 --checkpoint <path>               # Resume/checkpoint progressive renders
---balance <probe-spp>             # Measured-cost lane balancing (grid;
-                                  # bit-identical image, ~5% faster; 0=off)
---autotune                        # Tune kernel knobs for this chip (cached)
---full                            # With --autotune: also sweep TILE
-                                  # (cross-process; applied at next import)
 --serve <port>                    # Live progressive HTTP viewer (0 = auto);
                                   # with --gpus N>1 and/or --frames: the
                                   # animated multi-device production loop
@@ -41,7 +36,7 @@ HELP = """\
 """
 
 
-BACKENDS = ("auto", "grid", "paged", "mega", "matmul", "bruteforce", "pallas")
+BACKENDS = ("auto", "grid", "matmul", "bruteforce")
 
 
 class CLIError(Exception):
@@ -116,12 +111,6 @@ def parse_args(argv):
             extras["_frames"] = _take_num()
         elif a == "--checkpoint":
             extras["_checkpoint"] = _take()
-        elif a == "--balance":
-            extras["balance_spp"] = _take_num()
-        elif a == "--autotune":
-            extras["_autotune"] = True
-        elif a == "--full":
-            extras["_autotune_full"] = True
         elif a == "--serve":
             extras["_serve"] = _take_num()
         else:
@@ -142,32 +131,8 @@ def main(argv=None):
         return 0
     frames = kw.pop("_frames", None)
     checkpoint = kw.pop("_checkpoint", None)
-    tune = kw.pop("_autotune", False)
-    tune_full = kw.pop("_autotune_full", False)
     serve = kw.pop("_serve", None)
     try:
-        if tune:
-            # measure (or reuse the cached) per-chip kernel operating point;
-            # output bits are invariant to the tuned knobs (M/j/K/TILE
-            # invariance is test-pinned), so applying it is always safe
-            from ..runtime.autotune import (apply_tuned, autotune, load_tuned,
-                                            sweep_tile)
-
-            # tune under the mode the render will use (RR changes the
-            # iteration mix; winners are cached per device kind AND mode)
-            tmode = kw.get("mode", "exact")
-            tuned = load_tuned(mode=tmode)
-            if tuned is None:
-                tuned = autotune(width=kw["width"], height=kw["height"],
-                                 mode=tmode)
-            if tune_full and "tile" not in tuned:
-                # cross-process TILE sweep: the winner lands in the cache
-                # and is applied by the package bootstrap at NEXT import
-                # (TILE is compile-time); this process keeps its own TILE
-                tuned = sweep_tile(m=tuned["m"], j=tuned["j"], k=tuned["k"],
-                                   mode=tmode)
-            apply_tuned(tuned)
-            kw.setdefault("pixels_per_lane", tuned["m"])
         if serve is not None:
             # live progressive viewer + camera input (C8: the headless
             # analogue of the reference's per-GPU windows, window.hpp:29-54)

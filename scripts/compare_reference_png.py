@@ -21,7 +21,7 @@ writes tile statistics so the judgment is reproducible:
  1. the reference code's own camera (13,11,-3) — our ground truth claim;
  2. the closest approximation of the image's vintage camera (13,2,3).
 
-Usage: python scripts/compare_reference_png.py [spp] (TPU recommended)
+Usage: python scripts/compare_reference_png.py [spp] (GPU recommended)
 """
 import os
 import struct

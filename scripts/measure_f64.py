@@ -5,7 +5,7 @@ we accumulate f32 on device.  This renders the full benchmark twice with
 IDENTICAL RNG streams — (a) device-f32 carried accumulator, (b) float64
 host-side summation of 1000-spp chunks (accum_dtype=float64) — so the only
 difference is summation precision.  Records the numbers for
-docs/PERFORMANCE.md / PARITY.md.
+docs/PARITY.md.
 """
 import os
 import sys

@@ -1,10 +1,8 @@
 """Oracle path statistics: segments/sample and DDA cells/segment.
 
-Produces the useful-work floor quoted in docs/PERFORMANCE.md ("Wavefront
-health"): the book scene averages ~1.92 segments per sample and ~0.39
-marched grid cells per segment (the globals pass prunes the march to zero
-cells for most segments), so the wavefront's iteration count has little
-algorithmic headroom left.
+Produces the useful-work counts quoted in PERF.md: segments per sample
+and unit-lattice grid cells marched per segment on the book scene (device
+independent — these are counts of the algorithm's work, not times).
 
 Runs the CPU oracle over randomly sampled pixels with the exact reference
 RNG streams, hooking `_closest_hit` to count segments and replaying the
@@ -26,10 +24,9 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
-from raytrace_tpu.models.grid import build_grid
+from raytrace_tpu.models.grid import G_NCX, G_NCZ, G_X0, G_Z0, build_grid
 from raytrace_tpu.models.scene import generate_random_scene
 from raytrace_tpu.ops import rng as rngops
-from raytrace_tpu.ops.pallas_intersect import sphere_table
 from raytrace_tpu.ops.trace import viewport_arrays
 from raytrace_tpu.oracle import cpu_reference as orc
 from raytrace_tpu.runtime.renderer import reference_camera
@@ -42,10 +39,11 @@ def main() -> int:
     n_px = int(sys.argv[1]) if len(sys.argv) > 1 else 400
     spp = int(sys.argv[2]) if len(sys.argv) > 2 else 1
     sc = generate_random_scene(0.0)
-    g = build_grid(sc, sphere_table(sc))
-    gs = np.asarray(g.gscal)[0]
+    g = build_grid(sc, pitch=1.0)  # unit lattice: cell index == world x/z
+    gs = np.asarray(g.gscal)
     xlo, xhi, ylo, yhi, zlo, zhi = gs[0], gs[1], gs[2], gs[3], gs[4], gs[5]
-    cminx, cminz, cmaxx, cmaxz = gs[6], gs[7], gs[10], gs[11]
+    cminx, cminz = gs[G_X0], gs[G_Z0]
+    cmaxx, cmaxz = cminx + gs[G_NCX] - 1, cminz + gs[G_NCZ] - 1
 
     glob = [i for i in range(int(sc.n_spheres)) if sc.radii[i] > 0.49]
     stats = {"segments": 0, "cells": 0, "samples": 0}

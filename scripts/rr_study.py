@@ -29,10 +29,9 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np
 
 from raytrace_tpu.config import MAX_RAY_COLLISION_DISTANCE, T_MIN
-from raytrace_tpu.models.grid import build_grid
+from raytrace_tpu.models.grid import G_NCX, G_NCZ, G_X0, G_Z0, build_grid
 from raytrace_tpu.models.scene import generate_random_scene
 from raytrace_tpu.ops import rng as rngops
-from raytrace_tpu.ops.pallas_intersect import sphere_table
 from raytrace_tpu.ops.trace import viewport_arrays
 from raytrace_tpu.oracle import cpu_reference as orc
 from raytrace_tpu.runtime.renderer import reference_camera
@@ -46,10 +45,11 @@ def main() -> int:
     n_px = int(sys.argv[1]) if len(sys.argv) > 1 else 1200
     spp = int(sys.argv[2]) if len(sys.argv) > 2 else 4
     sc = generate_random_scene(0.0)
-    g = build_grid(sc, sphere_table(sc))
-    gs = np.asarray(g.gscal)[0]
+    g = build_grid(sc, pitch=1.0)  # unit lattice: cell index == world x/z
+    gs = np.asarray(g.gscal)
     xlo, xhi, ylo, yhi, zlo, zhi = gs[0], gs[1], gs[2], gs[3], gs[4], gs[5]
-    cminx, cminz, cmaxx, cmaxz = gs[6], gs[7], gs[10], gs[11]
+    cminx, cminz = gs[G_X0], gs[G_Z0]
+    cmaxx, cmaxz = cminx + gs[G_NCX] - 1, cminz + gs[G_NCZ] - 1
     glob = [i for i in range(int(sc.n_spheres)) if sc.radii[i] > 0.49]
 
     def slab(oc, dc, lo, hi):
@@ -88,7 +88,7 @@ def main() -> int:
                 icz += np.sign(d[2])
                 tnz += dtz
             cells += 1
-        return max(1, -(-cells // 2))  # j_steps=2
+        return max(1, -(-cells // 2))  # cost model: two cells per iteration
 
     def closest_with_glob(o, d):
         tg = BIG

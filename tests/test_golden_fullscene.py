@@ -32,7 +32,8 @@ def _render(backend, m=1):
     out = render_band(
         ds, vp, band_h=H, width=W, y0=np.int32(0), seed_y0=np.int32(0),
         offset_x=np.int32(0), spp=np.int32(SPP), number=np.uint32(0),
-        max_depth=DEPTH, backend=backend, pixels_per_lane=m)
+        max_depth=DEPTH, backend=backend, pixels_per_lane=m,
+        interpret=backend == "grid")
     return np.asarray(out)
 
 
@@ -48,8 +49,8 @@ def test_bruteforce_matches_golden(golden):
     _near_bitwise(_render("bruteforce"), golden)
 
 
-def test_mega_matches_golden(golden):
-    _near_bitwise(_render("mega", m=3), golden)
+def test_grid_matches_golden(golden):
+    _near_bitwise(_render("grid", m=3), golden)
 
 
 def test_matmul_statistical(golden):

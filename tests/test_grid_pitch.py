@@ -2,21 +2,15 @@
 
 Coarser cells (models/grid.py build_grid(pitch=...)) trade march steps for
 candidate quadratics; the delta-enlarged registration makes the winner set
-— and the image BITS — pitch-independent.  Power-of-two pitches keep the
-kernel's lattice arithmetic exact outright; other pitches stay within the
-registration slop (the same argument as the r2 reciprocal-slab change).
-
-Own file: each pitch compiles a large interpret-mode program (CLAUDE.md).
+— and the image BITS — pitch-independent.
 """
 
 import numpy as np
 import pytest
 
-from raytrace_tpu.models.grid import build_grid
-from raytrace_tpu.models.scene import generate_random_scene
-from raytrace_tpu.ops.pallas_intersect import sphere_table
-from raytrace_tpu.ops.trace import (prepare_scene, render_band_core,
-                                    viewport_arrays)
+from raytrace_tpu.models.grid import G_S, build_grid
+from raytrace_tpu.models.scene import generate_random_scene, random_sphere_field
+from raytrace_tpu.ops.trace import prepare_scene, render_band, viewport_arrays
 from raytrace_tpu.runtime.renderer import reference_camera
 
 W, H = 64, 36
@@ -27,74 +21,37 @@ def book_scene():
     return generate_random_scene(0.0)
 
 
-def _render(ds, *, depth=8, spp=2, m=2):
+def _render(ds, *, depth=8, spp=2, m=2, backend="grid"):
     vp = viewport_arrays(reference_camera(), W, H)
-    return np.asarray(render_band_core(
+    return np.asarray(render_band(
         ds, vp, band_h=H, width=W, y0=np.int32(0), seed_y0=np.int32(0),
         offset_x=np.int32(0), spp=np.int32(spp), number=np.uint32(0),
-        max_depth=depth, backend="grid", pixels_per_lane=m, skip_tmax=True))
+        max_depth=depth, backend=backend, pixels_per_lane=m,
+        interpret=backend == "grid"))
 
 
-def test_pitch_invariance_bitwise(book_scene):
-    sc = book_scene
-    table = np.asarray(sphere_table(sc))
-    ds1 = prepare_scene(sc)
-    base = _render(ds1)
-    for pitch, max_slots in ((2.0, 8), (3.0, 16)):
-        g = build_grid(sc, table, pitch=pitch, max_slots=max_slots)
-        assert g is not None, f"pitch {pitch} should build"
-        # coarse pitches use the adaptive FOUR-value layout (uniform heights)
-        assert g.has_cy is None and g.slots4 is not None
-        out = _render(ds1._replace(grid=g))
-        assert np.array_equal(base, out), f"pitch {pitch} diverged"
+@pytest.mark.parametrize("pitch", [0.5, 2.0])
+def test_pitch_invariance_bitwise(book_scene, pitch):
+    ds = prepare_scene(book_scene)
+    base = _render(ds)
+    g = build_grid(book_scene, pitch=pitch)
+    assert g is not None and g.gscal[G_S] == pitch
+    assert np.array_equal(base, _render(ds._replace(grid=g)))
 
 
 def test_auto_pitch_mode(book_scene):
-    """prepare_scene(grid_pitch="auto"): coarse-first with fallback."""
-    from raytrace_tpu.models.scene import random_sphere_field
-
-    ds = prepare_scene(book_scene, grid_pitch="auto")
-    assert ds.grid is not None and ds.grid.slots4 is not None  # pitch 2
-    assert ds.grid.ctab.shape == (32, 128)
-    # varied-height scene: auto falls back to the unit-pitch five layout
-    sc = random_sphere_field(250, seed=3, extent=11.0, y_range=(0.2, 2.5))
-    dv = prepare_scene(sc, grid_pitch="auto")
-    dv1 = prepare_scene(sc, grid_pitch=1.0)
-    assert dv.grid is not None and dv.grid.has_cy is not None
-    assert dv.grid.ctab.shape == dv1.grid.ctab.shape
+    """pitch=None: the coarsest pitch whose worst cell holds <= 8
+    candidates (the book's unit lattice), else the fewest slots (dense
+    fields drop to 0.5)."""
+    assert prepare_scene(book_scene).grid.gscal[G_S] == 1.0
+    dense = prepare_scene(random_sphere_field(2000, seed=1, extent=7.0))
+    assert dense.grid.gscal[G_S] == 0.5
+    assert dense.grid.cellid.shape[1] > 8
 
 
 def test_pitch2_builder_shapes(book_scene):
-    """Pitch 2 on the book scene: 8 slots, ONE fetch block (no block
-    selects), heroes/ground stay global (the 0.5 eligibility cap)."""
-    sc = book_scene
-    g = build_grid(sc, np.asarray(sphere_table(sc)), pitch=2.0)
-    assert g is not None
-    assert g.slots4.shape == (1, 8)
-    assert g.ctab.shape == (32, 128)  # stride 32 x cb 1
-    # ground + 3 heroes global (ids 0..3), plus boundary-line spills
-    assert list(g.gtab[:4, 4]) == [0.0, 1.0, 2.0, 3.0]
-
-
-def test_pitch2_call_merge_exact(book_scene):
-    """In-kernel call merge at pitch 2 == host loop at pitch 2 (the bench's
-    stage-7 configuration: RAYTRACE_GRID_PITCH=auto + calls_per_exec).
-    Depth 1 avoids bounce-chain fp chaos, so equality is exact even on
-    XLA:CPU (same form as test_grid.test_call_merge_matches_host_loop)."""
-    sc = book_scene
-    g = build_grid(sc, np.asarray(sphere_table(sc)), pitch=2.0)
-    ds = prepare_scene(sc)._replace(grid=g)
-    vp = viewport_arrays(reference_camera(), W, H)
-
-    def call(spp, number, accum=None, n_calls=None, spp_last=None):
-        return render_band_core(
-            ds, vp, band_h=H, width=W, y0=np.int32(0), seed_y0=np.int32(0),
-            offset_x=np.int32(0), spp=np.int32(spp), number=np.uint32(number),
-            accum_init=accum, max_depth=1, backend="grid",
-            pixels_per_lane=2, skip_tmax=True,
-            n_calls=None if n_calls is None else np.int32(n_calls),
-            spp_last=None if spp_last is None else np.int32(spp_last))
-
-    a = np.asarray(call(1, 1, accum=np.asarray(call(1, 0))))
-    b = np.asarray(call(1, 0, n_calls=2, spp_last=1))
-    assert np.array_equal(a, b)
+    """Pitch 2 on the book scene: 8 candidates per cell on a 13x13
+    lattice; the heroes and the ground stay global (the 0.5 cap)."""
+    g = build_grid(book_scene, pitch=2.0)
+    assert g.cellid.shape == (169, 8) and g.cellf.shape == (169, 32)
+    assert list(g.gtab[:, 4]) == [0.0, 1.0, 2.0, 3.0]

@@ -1,51 +1,57 @@
-"""Speculative multi-cell fetch (j_steps >= 2): output is invariant to j.
+"""The grid march finds brute force's closest hit.
 
-The grid kernel's j>=2 production path computes the whole DDA cell chain
-speculatively (ops/gridkernel.py _gather_rows_multi) — the advance direction
-depends only on t_nx/t_nz, never on hit results, so all j cells fetch in ONE
-gather per chunk.  The pinned invariant: the image BITS are identical for
-every j (and for the sequential "nodual" structure), because stopped lanes'
-speculative tail fetches are masked and continuing lanes' speculative chain
-replays the gated advance exactly.
-
-Own file: each j compiles a large interpret-mode program (CLAUDE.md: too
-many per pytest process can crash this host's XLA:CPU).
+``wavefront.grid_hit`` tests the global spheres, then marches the (x, z)
+cells and tests each cell's candidates until the next crossing lies beyond
+the best hit.  For any ray, the winner and its t must equal
+``intersect_bruteforce`` over all spheres bit for bit: same quadratic, same
+lowest-index tie-break.
 """
 
+import operator
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytrace_tpu.models.scene import generate_random_scene
-from raytrace_tpu.ops.trace import (prepare_scene, render_band_core,
-                                    viewport_arrays)
+from raytrace_tpu.config import MAX_RAY_COLLISION_DISTANCE, T_MIN
+from raytrace_tpu.models.scene import (generate_random_scene,
+                                       random_sphere_field)
+from raytrace_tpu.ops import wavefront as wf
+from raytrace_tpu.ops.intersect import intersect_bruteforce
+from raytrace_tpu.ops.trace import prepare_scene, viewport_arrays
 from raytrace_tpu.runtime.renderer import reference_camera
 
-W, H = 64, 36
+SCENES = {
+    "book": lambda: generate_random_scene(0.0),
+    "dense": lambda: random_sphere_field(2000, seed=1, extent=7.0),
+}
 
 
-@pytest.fixture(scope="module")
-def book():
-    return prepare_scene(generate_random_scene(0.0))
-
-
-def _render(ds, *, grid_steps, depth=8, spp=2, m=2, ablate=()):
-    vp = viewport_arrays(reference_camera(), W, H)
-    return np.asarray(render_band_core(
-        ds, vp, band_h=H, width=W, y0=np.int32(0), seed_y0=np.int32(0),
-        offset_x=np.int32(0), spp=np.int32(spp), number=np.uint32(0),
-        max_depth=depth, backend="grid", pixels_per_lane=m, skip_tmax=True,
-        grid_steps=grid_steps, ablate=ablate))
-
-
-def test_j_invariance_bitwise(book):
-    base = _render(book, grid_steps=(2, 4))
-    for j in (1, 3, 4):
-        out = _render(book, grid_steps=(j, 4))
-        assert np.array_equal(base, out), f"grid j={j} diverged from j=2"
-
-
-def test_spec_matches_sequential_structure(book):
-    """The one-gather speculative path == the sequential per-step fetch."""
-    spec = _render(book, grid_steps=(3, 4))
-    seq = _render(book, grid_steps=(3, 4), ablate=("nodual",))
-    assert np.array_equal(spec, seq)
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_march_matches_bruteforce_bitwise(scene, n=512):
+    ds = prepare_scene(SCENES[scene]())
+    g = jax.tree.map(jnp.asarray, ds.grid)
+    vp = viewport_arrays(reference_camera(), 32, 16)
+    lane = jnp.arange(n, dtype=jnp.int32)
+    st = wf.init_lanes(lane, jnp.ones((n,), bool), wf.call_scalars(1, 0, 0, 0, 0),
+                       wf.viewport_vector(vp), 32)
+    # random bounce-like rays from points scattered over the field
+    rng = np.random.default_rng(0)
+    o = rng.uniform([-11, 0.05, -11], [11, 3, 11], (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    st = st._replace(ox=o[:, 0], oy=o[:, 1], oz=o[:, 2],
+                     dx=d[:, 0], dy=d[:, 1], dz=d[:, 2])
+    t, idx, hit, done, _ = jax.jit(
+        lambda st: wf.grid_hit(st, g.gtab, g.cellf, g.cellid, g.cellcnt,
+                               g.gscal, div=operator.truediv))(st)
+    assert np.asarray(done).all()  # one call resolves every segment
+    bt, bidx, bhit = jax.jit(intersect_bruteforce)(
+        o, d, ds.centers, ds.radii, ds.valid, jnp.float32(T_MIN),
+        jnp.float32(MAX_RAY_COLLISION_DISTANCE))
+    hit = np.asarray(hit)
+    assert np.array_equal(hit, np.asarray(bhit))
+    assert np.array_equal(np.asarray(t), np.asarray(bt))
+    assert np.array_equal(np.asarray(idx)[hit], np.asarray(bidx)[hit])
+    assert hit.mean() > 0.5  # most rays hit something

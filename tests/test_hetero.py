@@ -86,7 +86,7 @@ def test_tuner_converges_on_2x_slow_device(monkeypatch):
     the ~2:1 row split when device 1 is 2x slower per row."""
     sc = three_sphere_scene()
     r = HeteroRenderer(_cfg(chips=2, height=48), scene=sc)
-    _patch_synthetic_devices(monkeypatch, r, [1e-3, 2e-3])
+    _patch_synthetic_devices(monkeypatch, r, [4e-3, 8e-3])
     assert r.rows == [24, 24]
     for _ in range(60):
         r.tune_round(SPP, frames=1)
@@ -95,16 +95,17 @@ def test_tuner_converges_on_2x_slow_device(monkeypatch):
     assert r.rows[0] - r.rows[1] >= 8, r.rows
 
 
-@pytest.mark.parametrize("backend,scene_fn", [
-    ("grid", lambda: generate_random_scene(0.0)),
-    ("paged", lambda: random_sphere_field(2000, seed=1, extent=7.0)),
-])
-def test_hetero_production_backends(backend, scene_fn):
-    """The tuner path against the production kernels (VERDICT r2 weak #6):
-    assemble + re-split with the grid/paged megakernels, not just matmul.
-    Each re-split changes band heights (new jit cache keys / rebucket
-    shapes) — the full reference teardown-rebuild analogue."""
-    sc = scene_fn()
+SCENES = {"book": lambda: generate_random_scene(0.0),
+          "dense": lambda: random_sphere_field(2000, seed=1, extent=7.0)}
+
+
+@pytest.mark.parametrize("backend,scene", [("grid", "book"), ("grid", "dense")])
+def test_hetero_production_backends(backend, scene, interpret_kernel):
+    """The tuner path against the grid kernel (interpret mode here), not
+    just matmul, on the book scene and a dense field.  Each re-split
+    changes band heights (new jit cache keys) — the full reference
+    teardown-rebuild analogue."""
+    sc = SCENES[scene]()
     cfg = _cfg(width=48, height=24, backend=backend, chips=2, max_depth=4,
                pixels_per_lane=2)
     r = HeteroRenderer(cfg, scene=sc, reference_banding=False)
@@ -113,14 +114,12 @@ def test_hetero_production_backends(backend, scene_fn):
     assert accum.shape == (24, 48, 3) and len(per_dev) == 2
     single, _ = Renderer(cfg, scene=sc).render(1)
     single = np.asarray(single)
-    # same chaos budget as the backends' own device-count invariance tests
-    bad = (np.abs(accum - single).max(axis=2) > 0.2).mean()
-    assert bad < 0.01, f"{bad:.3%} pixels differ"
+    # global seeds: the banded frame equals the single-device frame
+    assert np.array_equal(accum, single)
     # force an uneven re-split and render again (new band heights compile)
     r.rows = [16, 8]
     accum2, _, _ = r.render_frame(1)
-    bad2 = (np.abs(accum2 - single).max(axis=2) > 0.2).mean()
-    assert bad2 < 0.01, f"{bad2:.3%} pixels differ after re-split"
+    assert np.array_equal(accum2, single)
 
 
 def test_tune_round_updates_rows():

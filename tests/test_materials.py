@@ -44,10 +44,12 @@ def _compare(mat, attr, seed_base=17):
     seeds = rngops.tea_hash(np.arange(n, dtype=np.uint32), np.uint32(5))
 
     new_seed, sd, dsc = materials.scatter(
-        jnp.asarray(seeds), jnp.asarray(d), jnp.asarray(normal),
+        jnp.asarray(seeds), [jnp.asarray(d[:, c]) for c in range(3)],
+        [jnp.asarray(normal[:, c]) for c in range(3)],
         jnp.asarray(front), jnp.full((n,), mat, jnp.int32),
         jnp.full((n,), attr, jnp.float32))
-    new_seed, sd, dsc = map(np.asarray, (new_seed, sd, dsc))
+    new_seed, dsc = np.asarray(new_seed), np.asarray(dsc)
+    sd = np.stack([np.asarray(v) for v in sd], axis=1)
 
     for i in range(n):
         s, res = oracle._scatter(sc, 0, d[i], normal[i], bool(front[i]), seeds[i])
@@ -80,8 +82,11 @@ def test_texture_checkered():
     tex = np.int32([1, 1, 0])
     c0 = np.float32([[0.05] * 3] * 3)
     c1 = np.float32([[0.95] * 3] * 3)
-    out = np.asarray(materials.texture_color(jnp.asarray(point), jnp.asarray(tex),
-                                             jnp.asarray(c0), jnp.asarray(c1)))
+    def cols(a):
+        return [jnp.asarray(a[:, c]) for c in range(3)]
+
+    out = np.stack([np.asarray(v) for v in materials.texture_color(
+        cols(point), jnp.asarray(tex), cols(c0), cols(c1))], axis=1)
     # sin(0.6)^3 > 0 -> color0 ; flip one axis -> color1 ; solid -> color0
     assert np.allclose(out[0], 0.05)
     assert np.allclose(out[1], 0.95)

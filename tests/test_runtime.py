@@ -99,7 +99,7 @@ def test_resumable_retries_on_device_fault(monkeypatch):
     def flaky(self, spp, number=0, accum=None):
         calls["n"] += 1
         if calls["n"] == 2:  # fail once mid-render
-            raise RuntimeError("TPU worker process crashed")
+            raise RuntimeError("device fault")
         return orig(self, spp, number=number, accum=accum)
 
     monkeypatch.setattr(Renderer, "render_call", flaky)
@@ -160,46 +160,101 @@ def test_accum_dtype_rejects_unknown():
         r.render(2)
 
 
-def test_golden_check_runs_on_cpu():
-    """validation.golden_check (the bench numeric_check artifact) passes in
-    interpret mode for both kernel backends."""
+@pytest.mark.parametrize("backend", ["grid", "bruteforce"])
+def test_golden_check_runs_on_cpu(backend, interpret_kernel):
+    """validation.golden_check (chip_smoke.py's oracle check) passes on the
+    CPU for the grid kernel (interpret mode) and its reference."""
     from raytrace_tpu.runtime.validation import golden_check
 
-    for backend in ("mega", "grid"):
-        res = golden_check(backend)
-        assert res["ok"], res
-    # multi-tile config (several kernel grid steps — catches block-pipeline
-    # bugs like unwritten aliased-output rows)
-    res = golden_check("grid", multi_tile=True)
+    res = golden_check(backend)
+    assert res["ok"], res
+    # multi-block config (many kernel programs and a partial last block)
+    res = golden_check(backend, multi_tile=True)
     assert res["ok"], res
 
 
-def test_pixels_per_lane_minimizes_tile_padding():
-    """The auto pixels_per_lane pick minimizes lanes padded to the kernel
-    TILE: at 1080p the naive target M=63 needs 9 tiles of 4096 (11% dead
-    lanes per iteration) while M=64 needs 8 (1%)."""
-    from raytrace_tpu.config import RenderConfig
-    from raytrace_tpu.ops.gridkernel import TILE
-    from raytrace_tpu.runtime.renderer import Renderer
+def test_pixels_per_lane_from_profile():
+    """M comes from the device profile's lane target (CPU row here): a
+    1080p frame aims at lanes_target lanes; an explicit config wins."""
+    from raytrace_tpu.runtime.chips import profile_for
 
-    r = Renderer(RenderConfig(samples=1, width=1920, height=1080, backend="grid"))
-    assert r.pixels_per_lane == 64
-    n = -(-1920 * 1080 // r.pixels_per_lane)
-    assert -(-n // TILE) == 8  # tiles
-    # explicit config still wins
+    prof = profile_for("cpu")
+    r = Renderer(RenderConfig(samples=1, width=1920, height=1080,
+                              backend="grid"))
+    assert r.pixels_per_lane == 1920 * 1080 // prof.lanes_target
+    assert r.chunk_rows == 1080  # the grid kernel takes the whole frame
     r2 = Renderer(RenderConfig(samples=1, width=1920, height=1080,
                                backend="grid", pixels_per_lane=63))
     assert r2.pixels_per_lane == 63
 
 
-def test_chip_profile_lookup():
-    """Chip-constant table (runtime/chips.py): known kinds resolve, unknown
-    kinds fall back to the measured v5e-lite row."""
-    from raytrace_tpu.runtime.chips import DEFAULT, profile_for
+@pytest.mark.parametrize("backend,n_spheres,rows", [
+    ("matmul", 512, 1080),      # 2^19 lanes x M=4 cover the frame
+    ("matmul", 100_004, 5),     # 2684 lanes x 4 px / 1920 px per row
+    ("bruteforce", 512, 34),    # [lanes, spheres, 3] bound: 16384 lanes
+    ("grid", 100_004, 1080),    # no [lanes, spheres] intermediates
+])
+def test_band_rows_bound_brute_force(backend, n_spheres, rows):
+    """Brute force bounds lanes x spheres per band, so a dense scene
+    renders in more, smaller bands instead of exhausting device memory."""
+    from raytrace_tpu.runtime.renderer import band_rows
 
-    assert profile_for("TPU v5 lite0").kind_substr == "v5 lite"
-    assert profile_for("TPU v5p").kind_substr == "v5p"
-    assert profile_for("weird accelerator") is DEFAULT
-    assert profile_for(None) is not None  # live lookup never raises
-    p = profile_for("TPU v5 lite0")
-    assert p.tile == 4096 and p.lanes_target == 1 << 15
+    assert band_rows(backend, n_spheres, 1920, 1080, 4) == rows
+
+
+@pytest.mark.parametrize("kind,substr", [
+    ("NVIDIA H100 80GB HBM3", "H100"),
+    ("NVIDIA H100 PCIe", "H100"),
+    ("cpu", "cpu"),
+])
+def test_chip_profile_lookup(kind, substr):
+    """Device-constant table (runtime/chips.py): known kinds resolve."""
+    from raytrace_tpu.runtime.chips import profile_for
+
+    assert profile_for(kind).kind_substr == substr
+
+
+def test_chip_profile_unknown_kind_raises():
+    from raytrace_tpu.runtime.chips import profile_for
+
+    with pytest.raises(ValueError, match="no runtime profile"):
+        profile_for("weird accelerator")
+    assert profile_for(None) is not None  # the live device (CPU here)
+
+
+@pytest.mark.parametrize("env_dir", [False, True])
+def test_compile_cache_dir_rule(tmp_path, env_dir):
+    """With JAX_COMPILATION_CACHE_DIR set the package sets no cache
+    directory of its own (JAX uses the variable); without it, compiled
+    programs go to the checkout's .jax_cache."""
+    import os
+    import subprocess
+    import sys
+
+    import raytrace_tpu
+
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.path.dirname(os.path.dirname(raytrace_tpu.__file__))
+    want = raytrace_tpu.CACHE_DIR
+    if env_dir:
+        want = str(tmp_path / "cache")
+        env["JAX_COMPILATION_CACHE_DIR"] = want
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import jax, raytrace_tpu; print(jax.config.jax_compilation_cache_dir)"],
+        env=env, capture_output=True, text=True, timeout=120,
+        cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == want
+
+
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_backend_check_runs_on_cpu(mode, interpret_kernel):
+    """validation.backend_check (chip_smoke.py's kernel-vs-reference
+    check): on the CPU the interpret-mode kernel equals bruteforce."""
+    from raytrace_tpu.runtime.validation import backend_check
+
+    res = backend_check("grid", "bruteforce", mode=mode, size=(32, 16))
+    assert res["ok"] and res["diff_px"] == 0, res

@@ -15,7 +15,7 @@ def _ensure_native():
         if shutil.which("make") is None or shutil.which("g++") is None:
             pytest.skip("native toolchain unavailable")
         subprocess.run(
-            ["make", "-C", os.path.join(os.path.dirname(path), "..")], check=True,
+            ["make", "-C", os.path.dirname(os.path.dirname(path))], check=True,
             capture_output=True)
     return path
 
